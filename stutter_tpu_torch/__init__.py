@@ -1,0 +1,42 @@
+"""stutter_tpu_torch: the PyTorch + CUDA (Hopper) port of stutter_tpu.
+
+The JAX package `stutter_tpu` stays the reference; this package serves the
+same artifacts on an NVIDIA H100.  Its serving path is the reference's
+upload-and-predict flow: decode -> resample -> spectral-gate denoise ->
+149-dim features -> scaler -> seed-averaged MLP softmax.  The three Pallas
+kernels of that path are hand-written CUDA here (`csrc/*.cu`), built with
+nvcc at first use; each has a plain PyTorch version that runs for CPU
+tensors.  Nothing in this package imports JAX.
+
+Public surface (lazily imported; `import stutter_tpu_torch as stt`):
+
+  stt.extract_features_149_batch / extract_features_numpy   the front end
+  stt.denoise_clips / stt.denoise_batch                      spectral gate
+  stt.Predictor                                              serving
+  stt.SeedMLP                                                the MLP head
+  stt.StandardScaler / stt.LabelEncoder                      numpy artifacts
+"""
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "extract_features_149_batch": ("stutter_tpu_torch.ops.frontend", "extract_features_149_batch"),
+    "extract_features_numpy": ("stutter_tpu_torch.ops.frontend", "extract_features_numpy"),
+    "denoise_clips": ("stutter_tpu_torch.denoise", "denoise_clips"),
+    "denoise_batch": ("stutter_tpu_torch.denoise", "denoise_batch"),
+    "Predictor": ("stutter_tpu_torch.infer", "Predictor"),
+    "SeedMLP": ("stutter_tpu_torch.models.mlp", "SeedMLP"),
+    "StandardScaler": ("stutter_tpu_torch.models.scaler", "StandardScaler"),
+    "LabelEncoder": ("stutter_tpu_torch.models.scaler", "LabelEncoder"),
+}
+
+__all__ = ["__version__", *_LAZY]
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(f"module 'stutter_tpu_torch' has no attribute {name!r}")

@@ -1,0 +1,132 @@
+"""Fused STFT power + MFCC/delta statistics + piptrack candidates.
+
+Replaces the TPU kernel `spectromel_pallas(with_tuning=True, with_stats=True)`
+(stutter_tpu/ops/pallas_spectromel.py:409).  For a batch of zero-padded clips
+it returns the frame-masked power spectrogram [B, T, K], the MFCC/delta
+statistics [B, 6, n_mfcc] (rows: mfcc mean/std, delta mean/std, delta2
+mean/std over valid frames) and the librosa tuning bin [B].
+
+`spectromel` dispatches on where the audio lies: a CPU tensor runs
+`spectromel_plain`; a CUDA tensor launches csrc/spectromel.cu (chunk-DFT
+GEMM; power + piptrack candidates per frame tile; mel GEMM; dB/DCT/SavGol/
+stats per clip; the tuning bin per clip, as
+`ops.chroma.tuning_bin_from_candidates` computes it).
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from stutter_tpu.ops import filterbanks as fb
+from stutter_tpu_torch import _build
+from stutter_tpu_torch.ops.chroma import estimate_tuning_bin
+from stutter_tpu_torch.ops.consts import (
+    PIP_FMAX,
+    PIP_FMIN,
+    band_range,
+    chunk_dft_mats,
+    chunk_phase_tables,
+    residual_table,
+    savgol_taps,
+)
+from stutter_tpu_torch.ops.delta import sg_deltas
+from stutter_tpu_torch.ops.masked import frame_mask, masked_mean_std
+from stutter_tpu_torch.ops.spectral import mel_power_to_db, mfcc_from_db, power_spectrogram
+
+
+def spectromel_plain(
+    audio: torch.Tensor,
+    lengths: torch.Tensor,
+    sr: int = 16000,
+    n_fft: int = 2048,
+    hop_length: int = 512,
+    n_mels: int = 128,
+    n_mfcc: int = 20,
+    n_chroma: int = 12,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch composition the kernel computes (rfft power)."""
+    power = power_spectrogram(audio, n_fft, hop_length)
+    mask = frame_mask(lengths, hop_length, power.shape[1])
+    power = torch.where(mask[:, :, None], power, 0.0)
+    mf = mfcc_from_db(mel_power_to_db(power, mask, sr, n_fft, n_mels), n_mfcc)
+    n_valid = 1 + torch.div(lengths, hop_length, rounding_mode="floor")
+    d1, d2 = sg_deltas(mf, n_valid, orders=(1, 2))
+    rows = []
+    for x in (mf, d1, d2):
+        rows.extend(masked_mean_std(x, mask, axis=1))
+    stats = torch.stack(rows, dim=1)  # [B, 6, n_mfcc]
+    return power, stats, estimate_tuning_bin(power, sr, n_fft, n_chroma)
+
+
+@lru_cache(maxsize=None)
+def _device_tables(device: str, sr: int, n_fft: int, hop: int, n_mels: int, n_mfcc: int,
+                   n_chroma: int) -> tuple[torch.Tensor, ...]:
+    """The kernel's constant tables, uploaded once per device and geometry."""
+    K = n_fft // 2 + 1
+    cos_c, sin_c = chunk_dft_mats(n_fft, hop)
+    p_re, p_im = chunk_phase_tables(n_fft, hop)
+    mel_t = np.asarray(fb.mel_fb(sr, n_fft, n_mels), np.float32).T  # [K, M]
+    dct_t = fb.dct_mat(n_mfcc, n_mels).T  # [M, n_mfcc]
+    host = (np.concatenate([cos_c, sin_c], axis=1), p_re, p_im, mel_t,
+            residual_table(sr, n_fft, K, n_chroma), dct_t, savgol_taps())
+    return tuple(torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
+                 for a in host)
+
+
+def _spectromel_cuda(audio, lengths, sr, n_fft, hop, n_mels, n_mfcc, n_chroma):
+    B, N = audio.shape
+    if n_fft != 4 * hop or hop % 8 or N % hop:
+        raise ValueError(f"spectromel kernel needs n_fft == 4*hop, 8 | hop, hop | N; "
+                         f"got n_fft={n_fft} hop={hop} N={N}")
+    if audio.dtype != torch.float32 or lengths.device != audio.device:
+        raise ValueError("spectromel kernel takes float32 audio and lengths on its device")
+    audio = audio.contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    T, K = N // hop + 1, n_fft // 2 + 1
+    lo, hi = band_range(sr, n_fft, PIP_FMIN, PIP_FMAX)
+    tables = _device_tables(str(audio.device), sr, n_fft, hop, n_mels, n_mfcc, n_chroma)
+    dev = audio.device
+    z = torch.empty(B * (T + 3), 2 * K, device=dev)  # chunk DFTs, scratch
+    power = torch.empty(B, T, K, device=dev)
+    mel = torch.empty(B, T, n_mels, device=dev)
+    mags = torch.empty(B, T, hi - lo, device=dev)
+    idxm = torch.empty(B, T, hi - lo, device=dev)
+    stats = torch.empty(B, 6, n_mfcc, device=dev)
+    tb = torch.empty(B, dtype=torch.int32, device=dev)
+    fn = _build.bind("spectromel", "spectromel_launch", 16, 8, 1)
+    ptrs = [t.data_ptr() for t in (audio, lengths, *tables, z, power, mel, mags, idxm, stats, tb)]
+    # the series factor is rounded to f32 exactly as the plain version's
+    # Python-float scalar is
+    rc = fn(*ptrs, B, N, n_fft, hop, n_mels, n_mfcc, lo, hi,
+            n_chroma / math.log(2.0), _build.stream_of(audio))
+    _build.check(rc, "spectromel_launch")
+    spectromel.launches += 1
+    return power, stats, tb
+
+
+def spectromel(
+    audio: torch.Tensor,
+    lengths: torch.Tensor,
+    sr: int = 16000,
+    n_fft: int = 2048,
+    hop_length: int = 512,
+    n_mels: int = 128,
+    n_mfcc: int = 20,
+    n_chroma: int = 12,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """[B, N] zero-padded audio (N a multiple of hop) + lengths [B] ->
+    (power [B, T, K] frame-masked, stats [B, 6, n_mfcc], tuning_bin [B] int32).
+
+    A CUDA tensor launches the kernel; a CPU tensor runs the plain version."""
+    if audio.is_cuda:
+        return _spectromel_cuda(audio, lengths, sr, n_fft, hop_length, n_mels, n_mfcc, n_chroma)
+    if audio.device.type == "cpu":
+        return spectromel_plain(audio, lengths, sr, n_fft, hop_length, n_mels, n_mfcc, n_chroma)
+    raise ValueError(f"spectromel: no kernel for device {audio.device}")
+
+
+spectromel.launches = 0  # kernel launches of this wrapper, read by chip_smoke.py
