@@ -3,15 +3,19 @@
 The JAX package `stutter_tpu` stays the reference; this package serves the
 same artifacts on an NVIDIA H100.  Its serving path is the reference's
 upload-and-predict flow: decode -> resample -> spectral-gate denoise ->
-149-dim features -> scaler -> seed-averaged MLP softmax.  The three Pallas
-kernels of that path are hand-written CUDA here (`csrc/*.cu`), built with
-nvcc at first use; each has a plain PyTorch version that runs for CPU
-tensors.  Nothing in this package imports JAX.
+features (149-dim, or the 286-dim variant) -> scaler -> seed-averaged MLP
+softmax; its corpus path denoises the corpus with per-file QC metrics
+(`preprocess`) and builds the feature cache (`extract_corpus`).  The
+Pallas kernels of these paths are hand-written CUDA here (`csrc/*.cu`),
+built with nvcc at first use; each has a plain PyTorch version that runs
+for CPU tensors.  Nothing in this package imports JAX.
 
 Public surface (lazily imported; `import stutter_tpu_torch as stt`):
 
-  stt.extract_features_149_batch / extract_features_numpy   the front end
+  stt.extract_features_149_batch / extract_features_334_batch
+  stt.extract_features_numpy                                 the front end
   stt.denoise_clips / stt.denoise_batch                      spectral gate
+  stt.preprocess / stt.extract_corpus                        the corpus path
   stt.Predictor                                              serving
   stt.SeedMLP                                                the MLP head
   stt.StandardScaler / stt.LabelEncoder                      numpy artifacts
@@ -21,9 +25,13 @@ __version__ = "0.1.0"
 
 _LAZY = {
     "extract_features_149_batch": ("stutter_tpu_torch.ops.frontend", "extract_features_149_batch"),
+    "extract_features_334_batch": ("stutter_tpu_torch.ops.frontend334",
+                                   "extract_features_334_batch"),
     "extract_features_numpy": ("stutter_tpu_torch.ops.frontend", "extract_features_numpy"),
     "denoise_clips": ("stutter_tpu_torch.denoise", "denoise_clips"),
     "denoise_batch": ("stutter_tpu_torch.denoise", "denoise_batch"),
+    "preprocess": ("stutter_tpu_torch.pipeline", "preprocess"),
+    "extract_corpus": ("stutter_tpu_torch.pipeline", "extract_corpus"),
     "Predictor": ("stutter_tpu_torch.infer", "Predictor"),
     "SeedMLP": ("stutter_tpu_torch.models.mlp", "SeedMLP"),
     "StandardScaler": ("stutter_tpu_torch.models.scaler", "StandardScaler"),

@@ -1,10 +1,10 @@
 // Shared-chunk STFT, used by spectromel.cu and spectral_gate.cu.
 //
-// Frames at hop h overlap RATIO = n_fft / h times, and each hop chunk's DFT
-// is shared by the RATIO frames that contain it up to a phase:
+// Frames at hop h overlap R = n_fft / h times, and each hop chunk's DFT is
+// shared by the R frames that contain it up to a phase:
 //   X_t[k] = sum_c e^{-2 pi i c h k / n_fft} Z_{t+c}[k],
 //   Z_j[k] = sum_q chunk_j[q] e^{-2 pi i q k / n_fft},
-// a RATIO-fold saving over framing.  The periodic Hann window is applied
+// an R-fold saving over framing.  The periodic Hann window is applied
 // afterwards in frequency as its exact 3-tap spectrum,
 //   Y[k] = 0.5 X[k] - 0.25 (X[k-1] + X[k+1]),
 // with the conjugate-symmetric neighbours at DC and Nyquist.
@@ -14,7 +14,10 @@
 // steps: `chunk_dft`, one GEMM Z = chunks [B * C, hop] x [cos | sin]
 // [hop, 2K] (sgemm.cuh) whose A operand is read straight from the signal, so
 // no chunk matrix is built; then each kernel's frame-tile epilogue, which
-// recombines X from Z (`recombine_tile`) and applies `hann3`.
+// recombines X from Z (`recombine_tile<R>`) and applies `hann3`.  The ratio R
+// is a template parameter: a clip of N samples padded by n_fft / 2 on each
+// side has C = N / h + R hop chunks and T = N / h + 1 = C - R + 1 frames.
+// The phase factors are exact 0 / +-1 for R = 2 and 4.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,8 +27,7 @@
 
 namespace chunk_stft {
 
-constexpr int TF = 8;     // frames per epilogue tile
-constexpr int RATIO = 4;  // n_fft / hop
+constexpr int TF = 8;  // frames per epilogue tile
 
 // Threads for a loop over K bins: the fewest passes of at most 256
 // threads, rounded up to whole warps.
@@ -73,7 +75,8 @@ inline cudaError_t launch_chunk_dft(const float* sig, int n, int B, int C, int p
 }
 
 // Xr/Xi[t * K + k] = X_{t0+t}[k] (unwindowed) of clip b, for t < tf, from
-// Z rows b * C + t0 + t + c (c < RATIO) and the phase tables pre/pim [RATIO, K].
+// Z rows b * C + t0 + t + c (c < R) and the phase tables pre/pim [R, K].
+template <int R>
 __device__ inline void recombine_tile(const float* __restrict__ Z, int C, int K, int b, int t0,
                                       int tf, const float* __restrict__ pre,
                                       const float* __restrict__ pim, float* Xr, float* Xi) {
@@ -82,7 +85,7 @@ __device__ inline void recombine_tile(const float* __restrict__ Z, int C, int K,
     const float* z = Z + ((size_t)b * C + t0 + t) * 2 * K + k;
     float xr = 0.f, xi = 0.f;
 #pragma unroll
-    for (int c = 0; c < RATIO; ++c) {
+    for (int c = 0; c < R; ++c) {
       const float zr = z[(size_t)c * 2 * K], zi = z[(size_t)c * 2 * K + K];
       const float fr = pre[c * K + k], fi = pim[c * K + k];
       xr += fr * zr - fi * zi;

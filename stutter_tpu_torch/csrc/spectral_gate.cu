@@ -35,6 +35,8 @@ using namespace chunk_stft;
 
 namespace {
 
+constexpr int RATIO = 4;  // n_fft / hop: the gate's only geometry (1024 / 256)
+
 __global__ void gate_frames(const float* __restrict__ Z, int C, int T, int K,
                             const float* __restrict__ pre, const float* __restrict__ pim,
                             float* __restrict__ yr, float* __restrict__ yi,
@@ -46,7 +48,7 @@ __global__ void gate_frames(const float* __restrict__ Z, int C, int T, int K,
   const int t0 = blockIdx.x * TF;
   const int tf = min(TF, T - t0);
 
-  recombine_tile(Z, C, K, b, t0, tf, pre, pim, Xr, Xi);
+  recombine_tile<RATIO>(Z, C, K, b, t0, tf, pre, pim, Xr, Xi);
   __syncthreads();
 
   const size_t o = ((size_t)b * T + t0) * K;

@@ -1,23 +1,35 @@
 // Fused spectromel kernel for Hopper (sm_90a), FP32.
 //
-// Replaces stutter_tpu/ops/pallas_spectromel.py:spectromel_pallas in its
-// with_tuning=True, with_stats=True mode (body _spectromel_kernel,
-// _candidates_of, _mfcc_stats_of).  Four launches:
+// Replaces stutter_tpu/ops/pallas_spectromel.py:spectromel_pallas with
+// with_tuning=True (body _spectromel_kernel, _candidates_of, _mfcc_stats_of)
+// in both of its output modes:
+//
+//  * stats mode (with_stats=True; the 149-dim front end, n_fft = 4 * hop):
+//    power [B, T, K], MFCC/delta statistics [B, 6, n_mfcc], tuning bin [B];
+//    launches 1-5 below (`spectromel_launch`).
+//  * mel-output mode (with_stats=False; the 286-dim variant at n_fft 512,
+//    hop 256, through ops/frontend.py:spect_mel_db): power [B, T, K], the
+//    linear mel spectrum [B, T, M] and the tuning bin [B]; launches 1, 2, 3
+//    and 5 (`spectromel_mel_launch`), for n_fft / hop = 2 or 4.  Launch 4
+//    is not run: at the variant's 10 s bucket its per-clip MFCC/delta
+//    buffers would need 3 * 641 * 40 * 4 B = 307 KB of shared memory, over
+//    the 227 KB a block can get, and the variant reduces the mel spectrum
+//    in plain PyTorch (ops/frontend334.py) as the JAX package does in XLA.
 //
 //  1. chunk_dft (chunk_stft.cuh): Z = hop chunks x [cos | sin], one GEMM
 //     over all clips' chunks, read straight from the audio.
-//  2. spectromel_frames, one block per (clip, tile of TF frames): X from Z
-//     (phase recombination over 4 slots), the 3-tap Hann, |.|^2 and the
-//     frame mask -> power [B, T, K] (the chroma kernel reads it too); then,
-//     on the tile's power in shared memory, each frame's max and the
-//     piptrack candidates of the 150-4000 Hz band in the port's uncompacted
-//     layout (mags, residual bin as f32 or -1).
+//  2. spectromel_frames<R>, one block per (clip, tile of TF frames): X from
+//     Z (phase recombination over R = n_fft / hop slots), the 3-tap Hann,
+//     |.|^2 and the frame mask -> power [B, T, K] (the chroma kernel reads
+//     it too); then, on the tile's power in shared memory, each frame's max
+//     and the piptrack candidates of the 150-4000 Hz band in the port's
+//     uncompacted layout (mags, residual bin as f32 or -1).
 //  3. mel_gemm: mel [B * T, M] = power x mel filterbank^T.
-//  4. spectromel_stats, one block per clip: librosa power_to_db with the
-//     80 dB clamp under the max over valid frames, the orthonormal DCT-II,
-//     SavGol delta and delta-delta (width 9; interior taps, static first
-//     edge, last edge at the clip's own n_valid), and the masked mean and
-//     population std -> stats [B, 6, n_mfcc].
+//  4. spectromel_stats (stats mode only), one block per clip: librosa
+//     power_to_db with the 80 dB clamp under the max over valid frames, the
+//     orthonormal DCT-II, SavGol delta and delta-delta (width 9; interior
+//     taps, static first edge, last edge at the clip's own n_valid), and the
+//     masked mean and population std -> stats [B, 6, n_mfcc].
 //  5. tuning_tail, one block per clip: the tuning bin from the candidates,
 //     as ops/chroma.py:tuning_bin_from_candidates (XLA in the JAX package,
 //     stutter_tpu/ops/chroma.py:213) computes it -- the exact median of the
@@ -32,7 +44,11 @@
 // (0.8 MB per 3 s clip) and the power make a round trip through device
 // memory, which costs far less than the GEMM at 3.35 TB/s.  A clip's power
 // (97 x 1025 f32 at 3 s) does not fit in one SM's shared memory, hence frame
-// tiles and the per-clip stats launch.
+// tiles and the per-clip stats launch.  At the variant's geometry (K = 257,
+// ratio 2) the chunk DFT is 8x smaller per sample and the mel GEMM (inner
+// dimension 257, ragged against the 8-deep k tiles, which read zeros past
+// it) and the candidate pass over the longer frame axis (641 frames x 123
+// bins per 10 s clip) weigh more.
 //
 // The candidate arithmetic uses __f*_rn intrinsics, which the compiler never
 // fuses into FMAs: every operation rounds as the plain PyTorch version's
@@ -84,6 +100,7 @@ __device__ inline void candidate_at(const float* P, int k, float fmax, float rb,
   idx = fminf(fmaxf(bin, 0.f), 99.f);
 }
 
+template <int R>
 __global__ void spectromel_frames(const float* __restrict__ Z, const int* __restrict__ lengths,
                                   int C, int T, int K, int hop, const float* __restrict__ pre,
                                   const float* __restrict__ pim, const float* __restrict__ rtab,
@@ -99,7 +116,7 @@ __global__ void spectromel_frames(const float* __restrict__ Z, const int* __rest
   const int tf = min(TF, T - t0);
   const int nv = 1 + lengths[b] / hop;
 
-  recombine_tile(Z, C, K, b, t0, tf, pre, pim, Xr, Xi);
+  recombine_tile<R>(Z, C, K, b, t0, tf, pre, pim, Xr, Xi);
   __syncthreads();
 
   float* P = power + ((size_t)b * T + t0) * K;
@@ -314,54 +331,87 @@ __global__ void tuning_tail(const float* __restrict__ mags, const float* __restr
   }
 }
 
+// Launches 1-3 at ratio R = n_fft / hop: power, mel and the candidates.
+template <int R>
+cudaError_t launch_front(const float* audio, const int* lengths, const float* tab,
+                         const float* pre, const float* pim, const float* melT,
+                         const float* rtab, float* Z, float* power, float* mel, float* mags,
+                         float* idxm, int B, int N, int n_fft, int hop, int M, int lo, int hi,
+                         float c_ln2, cudaStream_t s) {
+  const int K = n_fft / 2 + 1;
+  const int T = N / hop + 1;
+  const int n_chunks = T + R - 1;
+  cudaError_t err = launch_chunk_dft(audio, N, B, n_chunks, n_fft / 2, hop, tab, K, Z, s);
+  if (err != cudaSuccess) return err;
+
+  const size_t smem = tile_smem_bytes(K);
+  err = cudaFuncSetAttribute(spectromel_frames<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  spectromel_frames<R><<<dim3((T + TF - 1) / TF, B), threads_for(K), smem, s>>>(
+      Z, lengths, n_chunks, T, K, hop, pre, pim, rtab, lo, hi, c_ln2, power, mags, idxm);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const sgemm::Dense P{power, B * T, K, K, 0};
+  const sgemm::Dense Mt{melT, K, M, M, 0};
+  if (sgemm::pick_tm(B * T, M, 1) == 8)
+    mel_gemm<8><<<sgemm::grid_for(8, B * T, M, 1), sgemm::THREADS, 0, s>>>(P, Mt, mel);
+  else
+    mel_gemm<4><<<sgemm::grid_for(4, B * T, M, 1), sgemm::THREADS, 0, s>>>(P, Mt, mel);
+  return cudaGetLastError();
+}
+
+bool bad_geometry(int N, int n_fft, int hop, int lo, int hi) {
+  return hop % sgemm::BK != 0 || N % hop != 0 || lo < 1 || hi >= n_fft / 2 + 1;
+}
+
 }  // namespace
 
+// Stats mode (launches 1-5), n_fft == 4 * hop.
 extern "C" int spectromel_launch(const void* audio, const void* lengths, const void* tab,
                                  const void* pre, const void* pim, const void* melT,
                                  const void* rtab, const void* dctT, const void* sg, void* Z,
                                  void* power, void* mel, void* mags, void* idxm, void* stats,
-                                 void* tb, int B, int N, int n_fft, int hop, int M, int C, int lo, int hi,
-                                 float c_ln2, void* stream) {
-  if (n_fft != RATIO * hop || hop % sgemm::BK != 0 || N % hop != 0 || lo < 1 ||
-      hi >= n_fft / 2 + 1)
-    return (int)cudaErrorInvalidValue;
-  const int K = n_fft / 2 + 1;
+                                 void* tb, int B, int N, int n_fft, int hop, int M, int C, int lo,
+                                 int hi, float c_ln2, void* stream) {
+  if (n_fft != 4 * hop || bad_geometry(N, n_fft, hop, lo, hi)) return (int)cudaErrorInvalidValue;
   const int T = N / hop + 1;
-  const int n_chunks = T + RATIO - 1;
   cudaStream_t s = (cudaStream_t)stream;
-
-  cudaError_t err = launch_chunk_dft((const float*)audio, N, B, n_chunks, n_fft / 2, hop,
-                                     (const float*)tab, K, (float*)Z, s);
+  cudaError_t err = launch_front<4>(
+      (const float*)audio, (const int*)lengths, (const float*)tab, (const float*)pre,
+      (const float*)pim, (const float*)melT, (const float*)rtab, (float*)Z, (float*)power,
+      (float*)mel, (float*)mags, (float*)idxm, B, N, n_fft, hop, M, lo, hi, c_ln2, s);
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem_a = tile_smem_bytes(K);
-  err = cudaFuncSetAttribute(spectromel_frames, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_a);
-  if (err != cudaSuccess) return (int)err;
-  spectromel_frames<<<dim3((T + TF - 1) / TF, B), threads_for(K), smem_a, s>>>(
-      (const float*)Z, (const int*)lengths, n_chunks, T, K, hop, (const float*)pre,
-      (const float*)pim, (const float*)rtab, lo, hi, c_ln2, (float*)power, (float*)mags,
-      (float*)idxm);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const sgemm::Dense P{(const float*)power, B * T, K, K, 0};
-  const sgemm::Dense Mt{(const float*)melT, K, M, M, 0};
-  const int tm = sgemm::pick_tm(B * T, M, 1);
-  if (tm == 8)
-    mel_gemm<8><<<sgemm::grid_for(8, B * T, M, 1), sgemm::THREADS, 0, s>>>(P, Mt, (float*)mel);
-  else
-    mel_gemm<4><<<sgemm::grid_for(4, B * T, M, 1), sgemm::THREADS, 0, s>>>(P, Mt, (float*)mel);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const size_t smem_b = sizeof(float) * 3 * (size_t)T * C;
+  const size_t smem = sizeof(float) * 3 * (size_t)T * C;
   err = cudaFuncSetAttribute(spectromel_stats, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_b);
+                             (int)smem);
   if (err != cudaSuccess) return (int)err;
-  spectromel_stats<<<B, 256, smem_b, s>>>((const float*)mel, (const int*)lengths, T, M, hop,
-                                          (const float*)dctT, C, (const float*)sg,
-                                          (float*)stats);
+  spectromel_stats<<<B, 256, smem, s>>>((const float*)mel, (const int*)lengths, T, M, hop,
+                                        (const float*)dctT, C, (const float*)sg, (float*)stats);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
+  tuning_tail<<<B, 512, 0, s>>>((const float*)mags, (const float*)idxm, T * (hi - lo), (int*)tb);
+  return (int)cudaGetLastError();
+}
+
+// Mel-output mode (launches 1, 2, 3 and 5), n_fft == 2 * hop or 4 * hop.
+extern "C" int spectromel_mel_launch(const void* audio, const void* lengths, const void* tab,
+                                     const void* pre, const void* pim, const void* melT,
+                                     const void* rtab, void* Z, void* power, void* mel,
+                                     void* mags, void* idxm, void* tb, int B, int N, int n_fft,
+                                     int hop, int M, int lo, int hi, float c_ln2, void* stream) {
+  if ((n_fft != 2 * hop && n_fft != 4 * hop) || bad_geometry(N, n_fft, hop, lo, hi))
+    return (int)cudaErrorInvalidValue;
+  const int T = N / hop + 1;
+  cudaStream_t s = (cudaStream_t)stream;
+  decltype(&launch_front<4>) front = &launch_front<4>;
+  if (n_fft == 2 * hop) front = &launch_front<2>;
+  cudaError_t err = front((const float*)audio, (const int*)lengths, (const float*)tab,
+                          (const float*)pre, (const float*)pim, (const float*)melT,
+                          (const float*)rtab, (float*)Z, (float*)power, (float*)mel,
+                          (float*)mags, (float*)idxm, B, N, n_fft, hop, M, lo, hi, c_ln2, s);
+  if (err != cudaSuccess) return (int)err;
   tuning_tail<<<B, 512, 0, s>>>((const float*)mags, (const float*)idxm, T * (hi - lo), (int*)tb);
   return (int)cudaGetLastError();
 }

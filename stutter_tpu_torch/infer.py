@@ -1,9 +1,10 @@
 """Single-clip serving (counterpart of stutter_tpu/infer.py's Predictor).
 
 The reference's upload-and-predict path (main.py:1011-1035): resample ->
-denoise -> 149-dim features -> shape guard -> scaler -> seed-averaged MLP.
-Every step runs on the Predictor's device; on a CUDA device the three
-kernels carry the denoise and feature steps.  A clip crosses to the device
+denoise -> features (149-dim, or the 286-dim variant when cfg.features
+asks for it) -> shape guard -> scaler -> seed-averaged MLP.  Every step
+runs on the Predictor's device; on a CUDA device the kernels carry the
+denoise and feature steps.  A clip crosses to the device
 once, padded to its sample bucket, and only the probabilities come back:
 the denoised audio goes straight into the feature batch, which holds the
 same values the JAX package's host round trip (denoise_clips, then
@@ -121,10 +122,12 @@ class Predictor:
             "proba": {c: float(p) for c, p in zip(self.label_encoder.classes_, proba)},
         }
 
-    def predict_file(self, path: str, denoise: bool | None = None) -> dict:
-        """Classify one WAV or MP3 file, resampled to the front end's rate."""
+    def predict_file(self, path: str, denoise: bool | None = None, decoder=None) -> dict:
+        """Classify one file, resampled to the front end's rate; `decoder`
+        (path, sr -> float32 PCM) reads formats the built-in readers do not
+        (stutter_tpu.io.decode)."""
         from stutter_tpu_torch.io.decode import decode_audio
 
         sr = self.cfg.features.frontend.sample_rate
-        y = decode_audio(path, sr, device=self.device)
+        y = decode_audio(path, sr, decoder=decoder, device=self.device)
         return self.predict_clip(y, sr, denoise=denoise)

@@ -1,6 +1,6 @@
-"""Batched 149-dim feature extraction (counterpart of stutter_tpu/ops/frontend.py).
+"""Batched feature extraction (counterpart of stutter_tpu/ops/frontend.py).
 
-The reference's feature contract (pipeline1.py:206-265):
+The reference's canonical 149-dim feature contract (pipeline1.py:206-265):
 
   [mfcc mean(20) | mfcc std(20) | delta mean/std(40) | delta2 mean/std(40) |
    chroma mean(12) | chroma std(12) | text(5)]
@@ -9,7 +9,9 @@ Clips are padded into sample-count buckets (multiples of the hop); every
 statistic is masked to each clip's own frame count, so a batch gives what
 each clip gives alone.  Two fused ops carry it, each a CUDA kernel for CUDA
 tensors and a plain PyTorch version for CPU tensors: `spectromel` (power,
-MFCC/delta statistics, tuning bin) and `chroma_stats`.
+MFCC/delta statistics, tuning bin) and `chroma_stats`.  The 286-dim variant
+(ops/frontend334.py) goes through `spect_mel_db`, the spectromel kernel's
+mel-output mode.
 """
 
 from __future__ import annotations
@@ -18,10 +20,27 @@ import numpy as np
 import torch
 
 from stutter_tpu_torch.ops.chroma_stats import chroma_stats
+from stutter_tpu_torch.ops.masked import frame_mask, masked_mean_std
+from stutter_tpu_torch.ops.spectral import db_from_mel
 from stutter_tpu_torch.ops.spectromel import spectromel
 
 # Sample-count buckets (multiples of hop=512) covering 0.45-10.1 s at 16 kHz.
 DEFAULT_BUCKETS = (24576, 49152, 98304, 163840)
+
+
+def spect_mel_db(audio, lengths, sr, n_fft, hop_length, n_mels, n_chroma=12):
+    """(masked power [B, T, K], mask [B, T], log-mel dB [B, T, M], tuning bin
+    [B]) for the batch, from the spectromel kernel's mel-output mode (a CUDA
+    tensor) or its plain version (a CPU tensor)."""
+    power, mel, tb = spectromel(audio, lengths, sr=sr, n_fft=n_fft, hop_length=hop_length,
+                                n_mels=n_mels, n_chroma=n_chroma, with_stats=False)
+    mask = frame_mask(lengths, hop_length, power.shape[1])
+    return power, mask, db_from_mel(mel, mask), tb
+
+
+def _stat_pair(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """[B, T, C] + [B, T] -> [B, 2C] (means then stds, ref pipeline1.py:220-221)."""
+    return torch.cat(masked_mean_std(x, mask, axis=1), dim=-1)
 
 
 def extract_features_149_batch(
@@ -89,15 +108,18 @@ def run_bucketed(
 
 
 def batch_extractor_for(feature_cfg):
-    """`batch_fn(audio [B, N], lengths [B]) -> [B, D]` for a FeatureConfig.
-    Only the canonical 149-dim contract is ported; the 286-dim variant
-    (spectral contrast, scalars) raises."""
-    if feature_cfg.include_contrast or feature_cfg.include_scalars:
-        raise NotImplementedError("the 334/286-dim feature variant is not ported to torch yet")
+    """`batch_fn(audio [B, N], lengths [B]) -> [B, D]` for a FeatureConfig:
+    the canonical 149-dim contract, or the 334-variant (main.py geometry,
+    fixed semantics; its computed length is 286) when the config includes
+    spectral contrast or the scalars."""
     fe = feature_cfg.frontend
+    if feature_cfg.include_contrast or feature_cfg.include_scalars:
+        from stutter_tpu_torch.ops.frontend334 import extract_features_334_batch as extract
+    else:
+        extract = extract_features_149_batch
 
     def batch_fn(audio, lengths):
-        return extract_features_149_batch(
+        return extract(
             audio, lengths, sr=fe.sample_rate, n_fft=fe.n_fft, hop_length=fe.hop_length,
             n_mels=fe.n_mels, n_mfcc=fe.n_mfcc, n_chroma=fe.n_chroma,
         )

@@ -20,16 +20,20 @@ def _expand(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return mask.unsqueeze(-1).expand_as(x) if mask.ndim < x.ndim else mask
 
 
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, axis: int) -> torch.Tensor:
+    """Mean over `axis` of the masked positions only, count clamped >= 1."""
+    mask = _expand(mask, x)
+    cnt = mask.sum(dim=axis).clamp_min(1).to(x.dtype)
+    return torch.where(mask, x, 0.0).sum(dim=axis) / cnt
+
+
 def masked_mean_std(
     x: torch.Tensor, mask: torch.Tensor, axis: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Two-pass masked mean and population std (ddof 0), count clamped >= 1."""
-    mask = _expand(mask, x)
-    cnt = mask.sum(dim=axis).clamp_min(1).to(x.dtype)
-    mean = torch.where(mask, x, 0.0).sum(dim=axis) / cnt
+    mean = masked_mean(x, mask, axis)
     centered = x - mean.unsqueeze(axis)
-    var = torch.where(mask, centered * centered, 0.0).sum(dim=axis) / cnt
-    return mean, torch.sqrt(var)
+    return mean, torch.sqrt(masked_mean(centered * centered, mask, axis))
 
 
 def masked_max(x: torch.Tensor, mask: torch.Tensor, axis, keepdims: bool = False) -> torch.Tensor:

@@ -48,6 +48,11 @@ def db_from_mel(
     return torch.maximum(db, clip_max - top_db)
 
 
+def mel_filterbank(sr: int, n_fft: int, n_mels: int, device) -> torch.Tensor:
+    """[n_mels, K] Slaney mel filterbank."""
+    return torch.as_tensor(fb.mel_fb(sr, n_fft, n_mels), device=device)
+
+
 def mel_power_to_db(
     power: torch.Tensor,
     mask: torch.Tensor,
@@ -59,7 +64,7 @@ def mel_power_to_db(
 ) -> torch.Tensor:
     """Power spec [B, T, K] -> log-mel [B, T, n_mels] (Slaney mel), per-clip
     top_db clamp."""
-    mel_fb = torch.as_tensor(fb.mel_fb(sr, n_fft, n_mels), device=power.device)
+    mel_fb = mel_filterbank(sr, n_fft, n_mels, power.device)
     return db_from_mel(torch.matmul(power, mel_fb.T), mask, amin, top_db)
 
 

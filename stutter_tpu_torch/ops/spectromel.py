@@ -1,16 +1,20 @@
-"""Fused STFT power + MFCC/delta statistics + piptrack candidates.
+"""Fused STFT power + mel or MFCC/delta statistics + piptrack tuning.
 
-Replaces the TPU kernel `spectromel_pallas(with_tuning=True, with_stats=True)`
-(stutter_tpu/ops/pallas_spectromel.py:409).  For a batch of zero-padded clips
-it returns the frame-masked power spectrogram [B, T, K], the MFCC/delta
-statistics [B, 6, n_mfcc] (rows: mfcc mean/std, delta mean/std, delta2
-mean/std over valid frames) and the librosa tuning bin [B].
+Replaces the TPU kernel `spectromel_pallas(with_tuning=True)`
+(stutter_tpu/ops/pallas_spectromel.py:409) in both of its modes.  For a
+batch of zero-padded clips it returns the frame-masked power spectrogram
+[B, T, K], then either (with_stats=True, the 149-dim front end) the
+MFCC/delta statistics [B, 6, n_mfcc] (rows: mfcc mean/std, delta mean/std,
+delta2 mean/std over valid frames) or (with_stats=False, the mel-output mode
+of the 286-dim variant) the linear mel spectrum [B, T, n_mels], and the
+librosa tuning bin [B].
 
 `spectromel` dispatches on where the audio lies: a CPU tensor runs
 `spectromel_plain`; a CUDA tensor launches csrc/spectromel.cu (chunk-DFT
-GEMM; power + piptrack candidates per frame tile; mel GEMM; dB/DCT/SavGol/
-stats per clip; the tuning bin per clip, as
-`ops.chroma.tuning_bin_from_candidates` computes it).
+GEMM; power + piptrack candidates per frame tile; mel GEMM; in stats mode
+dB/DCT/SavGol/stats per clip; the tuning bin per clip, as
+`ops.chroma.tuning_bin_from_candidates` computes it).  Stats mode needs
+n_fft == 4 * hop; the mel-output mode takes n_fft == 2 * hop or 4 * hop.
 """
 
 from __future__ import annotations
@@ -35,7 +39,12 @@ from stutter_tpu_torch.ops.consts import (
 )
 from stutter_tpu_torch.ops.delta import sg_deltas
 from stutter_tpu_torch.ops.masked import frame_mask, masked_mean_std
-from stutter_tpu_torch.ops.spectral import mel_power_to_db, mfcc_from_db, power_spectrogram
+from stutter_tpu_torch.ops.spectral import (
+    mel_filterbank,
+    mel_power_to_db,
+    mfcc_from_db,
+    power_spectrogram,
+)
 
 
 def spectromel_plain(
@@ -47,11 +56,15 @@ def spectromel_plain(
     n_mels: int = 128,
     n_mfcc: int = 20,
     n_chroma: int = 12,
+    with_stats: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain PyTorch composition the kernel computes (rfft power)."""
     power = power_spectrogram(audio, n_fft, hop_length)
     mask = frame_mask(lengths, hop_length, power.shape[1])
     power = torch.where(mask[:, :, None], power, 0.0)
+    if not with_stats:
+        mel = torch.matmul(power, mel_filterbank(sr, n_fft, n_mels, power.device).T)
+        return power, mel, estimate_tuning_bin(power, sr, n_fft, n_chroma)
     mf = mfcc_from_db(mel_power_to_db(power, mask, sr, n_fft, n_mels), n_mfcc)
     n_valid = 1 + torch.div(lengths, hop_length, rounding_mode="floor")
     d1, d2 = sg_deltas(mf, n_valid, orders=(1, 2))
@@ -77,10 +90,14 @@ def _device_tables(device: str, sr: int, n_fft: int, hop: int, n_mels: int, n_mf
                  for a in host)
 
 
-def _spectromel_cuda(audio, lengths, sr, n_fft, hop, n_mels, n_mfcc, n_chroma):
+def _spectromel_cuda(audio, lengths, sr, n_fft, hop, n_mels, n_mfcc, n_chroma, with_stats):
     B, N = audio.shape
-    if n_fft != 4 * hop or hop % 8 or N % hop:
-        raise ValueError(f"spectromel kernel needs n_fft == 4*hop, 8 | hop, hop | N; "
+    # stats mode: n_fft / hop == 4; mel-output mode: 2 or 4; both need 8 | hop
+    # (the GEMM's k tile) and hop | N
+    ratios = (4,) if with_stats else (2, 4)
+    if n_fft not in [r * hop for r in ratios] or hop % 8 or N % hop:
+        raise ValueError(f"spectromel kernel ({'stats' if with_stats else 'mel-output'} mode) "
+                         f"needs n_fft / hop in {ratios}, 8 | hop, hop | N; "
                          f"got n_fft={n_fft} hop={hop} N={N}")
     if audio.dtype != torch.float32 or lengths.device != audio.device:
         raise ValueError("spectromel kernel takes float32 audio and lengths on its device")
@@ -88,21 +105,32 @@ def _spectromel_cuda(audio, lengths, sr, n_fft, hop, n_mels, n_mfcc, n_chroma):
     lengths = lengths.to(torch.int32).contiguous()
     T, K = N // hop + 1, n_fft // 2 + 1
     lo, hi = band_range(sr, n_fft, PIP_FMIN, PIP_FMAX)
-    tables = _device_tables(str(audio.device), sr, n_fft, hop, n_mels, n_mfcc, n_chroma)
+    tab, pre, pim, mel_t, rtab, dct_t, sg = _device_tables(
+        str(audio.device), sr, n_fft, hop, n_mels, n_mfcc, n_chroma)
     dev = audio.device
-    z = torch.empty(B * (T + 3), 2 * K, device=dev)  # chunk DFTs, scratch
+    z = torch.empty(B * (T + n_fft // hop - 1), 2 * K, device=dev)  # chunk DFTs, scratch
     power = torch.empty(B, T, K, device=dev)
     mel = torch.empty(B, T, n_mels, device=dev)
     mags = torch.empty(B, T, hi - lo, device=dev)
     idxm = torch.empty(B, T, hi - lo, device=dev)
-    stats = torch.empty(B, 6, n_mfcc, device=dev)
     tb = torch.empty(B, dtype=torch.int32, device=dev)
-    fn = _build.bind("spectromel", "spectromel_launch", 16, 8, 1)
-    ptrs = [t.data_ptr() for t in (audio, lengths, *tables, z, power, mel, mags, idxm, stats, tb)]
     # the series factor is rounded to f32 exactly as the plain version's
     # Python-float scalar is
-    rc = fn(*ptrs, B, N, n_fft, hop, n_mels, n_mfcc, lo, hi,
-            n_chroma / math.log(2.0), _build.stream_of(audio))
+    c_ln2 = n_chroma / math.log(2.0)
+    stream = _build.stream_of(audio)
+    if not with_stats:
+        fn = _build.bind("spectromel", "spectromel_mel_launch", 13, 7, 1)
+        ptrs = [t.data_ptr() for t in (audio, lengths, tab, pre, pim, mel_t, rtab, z, power,
+                                       mel, mags, idxm, tb)]
+        rc = fn(*ptrs, B, N, n_fft, hop, n_mels, lo, hi, c_ln2, stream)
+        _build.check(rc, "spectromel_mel_launch")
+        spectromel.mel_launches += 1
+        return power, mel, tb
+    stats = torch.empty(B, 6, n_mfcc, device=dev)
+    fn = _build.bind("spectromel", "spectromel_launch", 16, 8, 1)
+    ptrs = [t.data_ptr() for t in (audio, lengths, tab, pre, pim, mel_t, rtab, dct_t, sg, z,
+                                   power, mel, mags, idxm, stats, tb)]
+    rc = fn(*ptrs, B, N, n_fft, hop, n_mels, n_mfcc, lo, hi, c_ln2, stream)
     _build.check(rc, "spectromel_launch")
     spectromel.launches += 1
     return power, stats, tb
@@ -117,16 +145,21 @@ def spectromel(
     n_mels: int = 128,
     n_mfcc: int = 20,
     n_chroma: int = 12,
+    with_stats: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """[B, N] zero-padded audio (N a multiple of hop) + lengths [B] ->
-    (power [B, T, K] frame-masked, stats [B, 6, n_mfcc], tuning_bin [B] int32).
+    (power [B, T, K] frame-masked, stats [B, 6, n_mfcc] or, with
+    with_stats=False, mel [B, T, n_mels], tuning_bin [B] int32).
 
     A CUDA tensor launches the kernel; a CPU tensor runs the plain version."""
+    args = (audio, lengths, sr, n_fft, hop_length, n_mels, n_mfcc, n_chroma, with_stats)
     if audio.is_cuda:
-        return _spectromel_cuda(audio, lengths, sr, n_fft, hop_length, n_mels, n_mfcc, n_chroma)
+        return _spectromel_cuda(*args)
     if audio.device.type == "cpu":
-        return spectromel_plain(audio, lengths, sr, n_fft, hop_length, n_mels, n_mfcc, n_chroma)
+        return spectromel_plain(*args)
     raise ValueError(f"spectromel: no kernel for device {audio.device}")
 
 
-spectromel.launches = 0  # kernel launches of this wrapper, read by chip_smoke.py
+# kernel launches of this wrapper per mode, read by chip_smoke.py
+spectromel.launches = 0  # stats mode
+spectromel.mel_launches = 0  # mel-output mode

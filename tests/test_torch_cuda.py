@@ -62,6 +62,37 @@ def test_spectromel_and_chroma_kernels_match_plain(cuda, N, lengths):
     assert float((got - chroma_stats_plain(p, tbs, nv)).abs().max()) < 1e-5
 
 
+@pytest.mark.parametrize("N,lengths", [
+    (24576, [24576, 20000, 4000, 2000, 9000]),  # incl. clips under 9 frames
+    (163840, [163840, 150000, 60000]),  # the 10 s bucket: 641 frames
+])
+def test_spectromel_mel_mode_matches_plain(cuda, N, lengths):
+    """The mel-output mode at the 286-dim variant's geometry (n_fft 512, hop
+    256, ratio 2): power relative 1e-5, mel relative 1e-4, the tuning bin
+    equal to the plain estimate on the kernel's own power; silent clip ->
+    bin 50.  The stats mode's count does not move."""
+    from stutter_tpu_torch.ops.chroma import estimate_tuning_bin
+    from stutter_tpu_torch.ops.spectromel import spectromel, spectromel_plain
+
+    audio = torch.from_numpy(_clips(3, len(lengths), N)).to(cuda)
+    le = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    for b, n in enumerate(lengths):
+        audio[b, n:] = 0
+    kw = dict(n_fft=512, hop_length=256, with_stats=False)
+    before = (spectromel.launches, spectromel.mel_launches)
+    p, m, tb = spectromel(audio, le, **kw)
+    assert (spectromel.launches, spectromel.mel_launches) == (before[0], before[1] + 1)
+    pp, mp, _ = spectromel_plain(audio, le, **kw)
+    assert p.shape == (len(lengths), N // 256 + 1, 257) and m.shape[-1] == 128
+    assert float((p - pp).abs().max() / pp.abs().max()) < 1e-5
+    assert float((m - mp).abs().max() / mp.abs().max()) < 1e-4
+    assert torch.equal(tb, estimate_tuning_bin(p, 16000, 512))
+    assert int(tb[-1]) == 50
+    n_valid = 1 + le // 256
+    for b in range(len(lengths)):  # frames past the clip's end are exactly zero
+        assert not p[b, n_valid[b]:].any() and not m[b, n_valid[b]:].any()
+
+
 @pytest.mark.parametrize("prop", [1.0, 0.8])
 def test_gate_kernel_matches_plain(cuda, prop):
     from stutter_tpu_torch.denoise import denoise_batch
@@ -81,8 +112,13 @@ def test_wrappers_reject_unsupported_geometry(cuda):
     from stutter_tpu_torch.ops.spectral_gate import spectral_gate
     from stutter_tpu_torch.ops.spectromel import spectromel
 
+    audio = torch.zeros(1, 24576, device=cuda)
+    ones = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # ratio 3: neither mode
+        spectromel(audio, ones, n_fft=768, hop_length=256)
     with pytest.raises(ValueError):
-        spectromel(torch.zeros(1, 24576, device=cuda), torch.ones(1, dtype=torch.int32, device=cuda),
-                   n_fft=512, hop_length=256)
+        spectromel(audio, ones, n_fft=768, hop_length=256, with_stats=False)
+    with pytest.raises(ValueError):  # ratio 2 is the mel-output mode's only
+        spectromel(audio, ones, n_fft=512, hop_length=256)
     with pytest.raises(ValueError):
         spectral_gate(torch.zeros(1, 10, 100, device=cuda), 400, 100, DenoiseConfig())

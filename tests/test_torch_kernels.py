@@ -133,3 +133,33 @@ def test_gate_batch_equals_single_and_zero_stays_zero():
     for c, b in zip(clips, batched):
         np.testing.assert_allclose(b, denoise_clips([c])[0], rtol=0, atol=1e-6)
     assert np.isfinite(batched[2]).all() and (batched[2] == 0.0).all()
+
+
+@pytest.mark.parametrize("n_fft,hop", [(2048, 512), (512, 256)])
+def test_spectromel_mel_mode_plain_matches_pallas_kernel(n_fft, hop):
+    """The mel-output mode (with_stats=False; the 286-dim variant runs it at
+    n_fft 512, hop 256) against spectromel_pallas(with_tuning=True,
+    with_stats=False) in interpret mode, within tests/test_pallas.py's
+    bounds: power relative 1e-5, mel relative 1e-4, tuning bin exact."""
+    from stutter_tpu.ops.pallas_spectromel import spectromel_pallas
+    from stutter_tpu_torch.ops.spectromel import spectromel
+
+    audio, lengths = _structured(np.random.RandomState(14))
+    before = (spectromel.launches, spectromel.mel_launches)
+    p, m, tb = (x.numpy() for x in spectromel(
+        torch.from_numpy(audio), torch.from_numpy(lengths), n_fft=n_fft, hop_length=hop,
+        with_stats=False))
+    assert (spectromel.launches, spectromel.mel_launches) == before
+    p_k, m_k, tb_k = (np.asarray(x) for x in spectromel_pallas(
+        jnp.asarray(audio), jnp.asarray(lengths), n_fft=n_fft, hop_length=hop,
+        with_tuning=True, with_stats=False, interpret=True))
+    T = 24576 // hop + 1
+    assert p.shape == p_k.shape == (4, T, n_fft // 2 + 1) and m.shape == (4, T, 128)
+    assert np.abs(p - p_k).max() / p_k.max() < 1e-5
+    assert np.abs(m - m_k).max() / m_k.max() < 1e-4
+    np.testing.assert_array_equal(tb, tb_k)
+    assert tb[3] == 50
+    # frames past each clip's end are exactly zero in both outputs
+    n_valid = 1 + lengths // hop
+    for b in range(4):
+        assert not p[b, n_valid[b]:].any() and not m[b, n_valid[b]:].any()

@@ -166,17 +166,24 @@ def test_cuda_device_raises_without_gpu(workspace, tmp_path):
         Predictor.load(str(out), device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         cli.main(["predict", str(tmp_path / "none.wav"), "--root", str(root)])
+    for cmd in (["preprocess"], ["extract", "--variant", "334"]):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            cli.main([*cmd, "--root", str(tmp_path / "ws")])
+    assert not (tmp_path / "ws").exists()  # raised before writing anything
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port pulls in no JAX."""
+    """Importing every module of the port, the corpus path's among them,
+    pulls in no JAX."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import stutter_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')\n"
         "         if not m.name.endswith('__main__')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 18, names\n"
+        "assert len(names) >= 22, names\n"
+        "need = {'pipeline', 'ops.frontend334', 'ops.qc', 'io.native', 'io.decode', 'cli'}\n"
+        "assert {'stutter_tpu_torch.' + n for n in need} <= set(names), names\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
