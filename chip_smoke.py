@@ -6,8 +6,11 @@
 1. Prints the card's name and power limit (nvidia-smi) and builds the three
    CUDA sources from csrc/ with nvcc, all at once.
 2. Holds each kernel (and the spectromel kernel's mel-output mode) against
-   its plain PyTorch version on the card, at the paths' shapes and at the
-   10 s bucket, and times both (median of CUDA-event timings).
+   its plain PyTorch version on the card, at the paths' batch shapes, at
+   the 10 s bucket and at the request shape (one 3 s clip), and times both
+   (median of CUDA-event timings), beside the least time the card could
+   take (`bound`) and, for the two FFT kernels, torch.fft.rfft over the
+   same framed, windowed audio as a yardstick of the STFT stage.
 3. Serving, 149-dim: writes full-width artifacts from a numpy seed
    (149-256-128-64-3 MLP with 8 seeds, a scaler, 3 classes), loads them with
    Predictor.load(device="cuda"), answers 8 predict_clip requests with
@@ -20,7 +23,10 @@
 5. Serving, 286-dim (--variant 334, the main.py protocol with
    prop_decrease 0.8): 286-256-128-64-3 artifacts, the same 8 requests,
    CUDA against CPU.
-6. Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
+6. Profiles one call each of the 149-dim batch front end, the batch gate
+   and one 149-dim request with torch.profiler: device time per kernel,
+   launches, and the device's idle share of the wall time.
+7. Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
 
 Each of the paths 3-5 runs with every launch count set to 0 just before it
 and read just after, and fails if a kernel it uses never launched.
@@ -54,6 +60,38 @@ KERNELS = {  # kernel (mode) -> (source, the TPU kernel it replaces)
                       "stutter_tpu/ops/pallas_denoise.py:265"),
 }
 N_CORPUS, CLASSES = 905, ("block", "fluent", "repetition")
+# one H100 SXM at 700 W (its datasheet peak rates): HBM bytes/s,
+# FP32 FLOP/s outside the tensor cores
+HBM_RATE, FP32_RATE = 3.35e12, 67e12
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time for the work: each input read once and each output
+    written once at the memory rate, or the FP32 operations at the peak
+    rate, whichever is larger."""
+    mem_ms, op_ms = n_bytes / HBM_RATE * 1e3, flops / FP32_RATE * 1e3
+    return {"bound_ms": max(mem_ms, op_ms), "bound_by": "bytes" if mem_ms >= op_ms else "operations",
+            "bytes": n_bytes, "flops": flops}
+
+
+def fft_flops(n_frames: int, n_fft: int) -> float:
+    """Real FFTs of n_fft points: 2.5 n log2 n operations each."""
+    return n_frames * 2.5 * n_fft * np.log2(n_fft)
+
+
+def mel_nonzeros(n_fft: int, n_mels: int = 128) -> int:
+    from stutter_tpu_torch.ops.consts import mel_sparse
+
+    return int(mel_sparse(SR, n_fft, n_mels)[1].size)
+
+
+def stft_library_ms(framed) -> float:
+    """torch.fft.rfft over framed, windowed audio: the STFT stage as one
+    library call, timed as a yardstick only (the port never calls it on the
+    card's path)."""
+    import torch
+
+    return time_ms(lambda: torch.fft.rfft(framed, dim=-1))
 
 
 def structured_clips(rng, n_clips: int, n: int) -> np.ndarray:
@@ -119,6 +157,7 @@ def compare_spectromel(rng, dev, B: int, N: int, length: int, timed: bool):
     import torch
 
     from stutter_tpu_torch.ops.chroma import estimate_tuning_bin
+    from stutter_tpu_torch.ops.spectral import frame, hann
     from stutter_tpu_torch.ops.spectromel import spectromel, spectromel_plain
 
     audio = torch.from_numpy(structured_clips(rng, B, N)).to(dev)
@@ -139,24 +178,34 @@ def compare_spectromel(rng, dev, B: int, N: int, length: int, timed: bool):
     check(res["stats_max_err"] < 2e-3 and res["stats_mean_err"] < 2e-4,
           f"spectromel stats err {res['stats_max_err']} / {res['stats_mean_err']}")
     check(res["tb_equal_to_own_power"], "spectromel tuning bin != plain estimate on its power")
+    T, K = p.shape[1:]
+    # power, stats and tuning bin out; FFT, |.|^2, the sparse mel and the DCT
+    res.update(bound(4 * (B * N + B + B * T * K + B * 6 * 20 + B),
+                     fft_flops(B * T, 2048) + B * T * (3 * K + 2 * mel_nonzeros(2048) + 2 * 128 * 20)))
     if timed:
         res["ms"] = time_ms(lambda: spectromel(audio, lengths))
         res["plain_ms"] = time_ms(lambda: spectromel_plain(audio, lengths))
+        framed = frame(audio, 2048, 512) * hann(2048, dev)
+        res["stft_library_ms"] = stft_library_ms(framed)
+        del framed
     return res, (p, tb, lengths)
 
 
 def compare_spectromel_mel(rng, dev, B: int, N: int) -> dict:
     """The mel-output mode at the 286-dim variant's geometry (n_fft 512, hop
-    256): clip lengths from N / 4 to N, the last clip silent."""
+    256): clip lengths from N / 4 to N, the last clip silent (one clip of
+    N - 1000 samples at B=1)."""
     import torch
 
     from stutter_tpu_torch.ops.chroma import estimate_tuning_bin
+    from stutter_tpu_torch.ops.spectral import frame, hann
     from stutter_tpu_torch.ops.spectromel import spectromel, spectromel_plain
 
     audio = torch.from_numpy(structured_clips(rng, B, N)).to(dev)
     lens = rng.randint(N // 4, N + 1, size=B).astype(np.int32)
-    lens[0] = N
-    audio[-1] = 0
+    lens[0] = N if B > 1 else N - 1000
+    if B > 1:
+        audio[-1] = 0
     for b, n in enumerate(lens):
         audio[b, n:] = 0
     lengths = torch.from_numpy(lens).to(dev)
@@ -168,14 +217,20 @@ def compare_spectromel_mel(rng, dev, B: int, N: int) -> dict:
            "mel_rel_err": float((m - mp).abs().max() / mp.abs().max()),
            "mel_max_abs_err": float((m - mp).abs().max()),
            "tb_equal_to_own_power": bool(torch.equal(tb, estimate_tuning_bin(p, SR, 512))),
-           "tb_agree_with_plain": int((tb == tbp).sum()), "tb_silent": int(tb[-1])}
+           "tb_agree_with_plain": int((tb == tbp).sum()), "tb_last": int(tb[-1])}
     check(torch.isfinite(m).all().item(), "spectromel mel not finite")
     check(res["power_rel_err"] < 1e-5, f"spectromel mel mode power rel err {res}")
     check(res["mel_rel_err"] < 1e-4, f"spectromel mel mode mel rel err {res}")
-    check(res["tb_equal_to_own_power"] and res["tb_silent"] == 50,
+    check(res["tb_equal_to_own_power"] and (B == 1 or res["tb_last"] == 50),
           f"spectromel mel mode tuning bin != plain estimate on its power: {res}")
+    T, K = p.shape[1:]
+    # power, mel and tuning bin out; FFT, |.|^2 and the sparse mel
+    res.update(bound(4 * (B * N + B + B * T * K + B * T * 128 + B),
+                     fft_flops(B * T, 512) + B * T * (3 * K + 2 * mel_nonzeros(512))))
     res["ms"] = time_ms(lambda: spectromel(audio, lengths, **kw))
     res["plain_ms"] = time_ms(lambda: spectromel_plain(audio, lengths, **kw))
+    framed = frame(audio, 512, 256) * hann(512, dev)
+    res["stft_library_ms"] = stft_library_ms(framed)
     return res
 
 
@@ -189,7 +244,9 @@ def compare_chroma_stats(p, tb, lengths) -> dict:
     ref = chroma_stats_plain(p, tb, n_valid)
     err = float((got - ref).abs().max())
     check(err < 1e-5, f"chroma_stats err {err}")
-    return {"B": p.shape[0], "max_err": err,
+    B, T, K = p.shape
+    # power, tuning bin and n_valid in, [B, 24] out; the 12-row projection
+    return {"B": B, "max_err": err, **bound(4 * (B * T * K + 2 * B + 24 * B), B * T * 2 * K * 12),
             "ms": time_ms(lambda: chroma_stats(p, tb, n_valid)),
             "plain_ms": time_ms(lambda: chroma_stats_plain(p, tb, n_valid))}
 
@@ -197,8 +254,10 @@ def compare_chroma_stats(p, tb, lengths) -> dict:
 def compare_gate(rng, dev, B: int, N: int, timed: bool) -> dict:
     import torch
 
-    from stutter_tpu.config import DenoiseConfig
-    from stutter_tpu_torch.denoise import denoise_batch
+    from stutter_tpu_torch.config import DenoiseConfig
+    from stutter_tpu_torch.denoise import PAD, denoise_batch
+    from stutter_tpu_torch.ops.consts import mask_smoothing_profiles
+    from stutter_tpu_torch.ops.spectral import hann
     from stutter_tpu_torch.ops.spectral_gate import spectral_gate_plain
 
     cfg = DenoiseConfig()
@@ -224,11 +283,83 @@ def compare_gate(rng, dev, B: int, N: int, timed: bool) -> dict:
         check(float(got[1, 3000:].abs().max()) == 0.0, "spectral_gate padding not exactly 0")
     else:
         check(err < 0.03 and corr > 0.9999, f"spectral_gate err {err}, corr {corr}")
+    # denoise_batch's geometry: PAD zeros each side, centred frames at hop 256
+    C = -(-(N + 2 * PAD) // 256) + 4
+    T, K = C - 3, 513
+    kf, kt = (len(t) for t in mask_smoothing_profiles(cfg))
+    # audio and lengths in, [B, N] out; per frame two FFTs and |.|, per bin
+    # the two IIR passes and the mask (16), the smoothing taps, the blend
+    res.update(bound(4 * (2 * B * N + B),
+                     2 * fft_flops(B * T, 1024) + B * T * K * (16 + 2 * (kf + kt))))
     if timed:
         res["ms"] = time_ms(lambda: denoise_batch(audio, lengths, cfg))
         res["plain_ms"] = time_ms(lambda: denoise_batch(audio, lengths, cfg,
                                                         gate=spectral_gate_plain))
+        x = torch.nn.functional.pad(audio, (PAD + 512, C * 256 - N - PAD - 512))
+        res["stft_library_ms"] = stft_library_ms(x.unfold(-1, 1024, 256) * hann(1024, dev))
+        del x
     return res
+
+
+def device_profile(fn, reps: int = 3) -> dict:
+    """torch.profiler over `reps` calls of `fn` after a warm one: wall ms
+    per call (under the profiler), device ms per call (the kernels' and
+    copies' durations), the device's idle share of the wall time, launches
+    per call, and the eight kernels with the most device time."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = re.sub(r"\(anonymous namespace\)::", "", e.name).split("(")[0][:60]
+        acc = by_name.setdefault(name, [0.0, 0])
+        acc[0] += e.time_range.elapsed_us() / 1e3 / reps
+        acc[1] += 1
+    device = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"wall_ms": wall, "device_ms": device,
+            "idle_share": 1.0 - device / wall if wall > 0 else None,
+            "launches": sum(v[1] for v in by_name.values()) / reps,
+            "top": [[k, v[0], v[1] / reps] for k, v in top]}
+
+
+def profile_batches(rng, dev) -> dict:
+    """Device profiles of the 149-dim front end at B=256 x 3 s and the gate
+    (denoise_batch) at B=64 x 3 s."""
+    import torch
+
+    from stutter_tpu_torch.config import DenoiseConfig
+    from stutter_tpu_torch.denoise import denoise_batch
+    from stutter_tpu_torch.ops.frontend import extract_features_149_batch
+
+    out = {}
+    for name, B, fn in (("features_149_B256", 256, extract_features_149_batch),
+                        ("denoise_B64", 64, lambda a, n: denoise_batch(a, n, DenoiseConfig()))):
+        audio = torch.from_numpy(structured_clips(rng, B, 49152)).to(dev)
+        lengths = torch.full((B,), 48000, dtype=torch.int32, device=dev)
+        out[name] = device_profile(lambda: fn(audio, lengths))
+    return out
+
+
+def profile_request(rng, dev, out_dir: str, cfg) -> dict:
+    """The device profile of one 3 s predict_clip request, denoise on."""
+    from stutter_tpu_torch.infer import Predictor
+
+    pred = Predictor.load(out_dir, cfg, device=dev)
+    y = structured_clips(rng, 1, 3 * SR)[0]
+    return device_profile(lambda: pred.predict_clip(y))
 
 
 def write_artifacts(rng, out_dir: str, dev, cfg) -> None:
@@ -260,7 +391,7 @@ def serve_requests(rng, dev, out_dir: str, cfg, kernels, cpu_denoise: bool) -> d
     probabilities within 1e-3."""
     import torch
 
-    from stutter_tpu.io.wav import write_wav
+    from stutter_tpu_torch.io.wav import write_wav
     from stutter_tpu_torch.infer import Predictor
 
     pred = Predictor.load(out_dir, cfg, device=dev)
@@ -317,7 +448,7 @@ def write_corpus(rng, root: str) -> int:
     """N_CORPUS clips of 0.5-10 s under three class folders, unique stems
     (the feature cache is keyed by stem), ~5 % at 22.05 kHz; -> seconds of
     audio written."""
-    from stutter_tpu.io.wav import write_wav
+    from stutter_tpu_torch.io.wav import write_wav
 
     total = 0.0
     for i in range(N_CORPUS):
@@ -338,8 +469,8 @@ def corpus_phase(rng, dev, root: str) -> dict:
 
     import torch
 
-    from stutter_tpu.config import FEATURES_334, PipelineConfig
-    from stutter_tpu.utils.profiling import StageTimer
+    from stutter_tpu_torch.config import FEATURES_334, PipelineConfig
+    from stutter_tpu_torch.utils.profiling import StageTimer
     from stutter_tpu_torch.io.decode import decode_audio
     from stutter_tpu_torch.ops.frontend import extract_features_numpy
     from stutter_tpu_torch.pipeline import extract_corpus, preprocess
@@ -354,7 +485,7 @@ def corpus_phase(rng, dev, root: str) -> dict:
     reports: list[str] = []
     handler = logging.Handler()
     handler.emit = lambda record: reports.append(record.getMessage())
-    prof_log = logging.getLogger("stutter_tpu.profiling")
+    prof_log = logging.getLogger("stutter_tpu_torch.profiling")
     prof_log.addHandler(handler)
     prof_log.setLevel(logging.INFO)
 
@@ -429,7 +560,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
         return 1
-    from stutter_tpu.config import FEATURES_334, DenoiseConfig, PipelineConfig
+    from stutter_tpu_torch.config import FEATURES_334, DenoiseConfig, PipelineConfig
     from stutter_tpu_torch import _build
     from stutter_tpu_torch.infer import resolve_device
 
@@ -458,17 +589,26 @@ def main() -> int:
     gt10 = compare_gate(rng, dev, 64, 163840, timed=True)
     mel = compare_spectromel_mel(rng, dev, 256, 49152)
     mel10 = compare_spectromel_mel(rng, dev, 64, 163840)
+    # the request shape: one 3 s clip
+    sm1, kernel_out = compare_spectromel(rng, dev, 1, 49152, 48000, timed=True)
+    cs1 = compare_chroma_stats(*kernel_out)
+    del kernel_out
+    gt1 = compare_gate(rng, dev, 1, 49152, timed=True)
+    mel1 = compare_spectromel_mel(rng, dev, 1, 49152)
     for name, res in (("spectromel 3s", sm), ("chroma_stats 3s", cs), ("spectral_gate test", gt_small),
                       ("spectral_gate 3s", gt), ("spectromel 10s", sm10),
                       ("chroma_stats 10s", cs10), ("spectral_gate 10s", gt10),
-                      ("spectromel_mel 3s", mel), ("spectromel_mel 10s", mel10)):
-        print(f"{name}: {json.dumps(res)}")
+                      ("spectromel_mel 3s", mel), ("spectromel_mel 10s", mel10),
+                      ("spectromel request", sm1), ("chroma_stats request", cs1),
+                      ("spectral_gate request", gt1), ("spectromel_mel request", mel1)):
+        print(f"{name}: {json.dumps(res)} ({card})")
 
     with tempfile.TemporaryDirectory() as out_dir:  # phase 3: serving, 149-dim
         cfg149 = PipelineConfig()
         write_artifacts(rng, out_dir, dev, cfg149)
         serve = serve_requests(rng, dev, out_dir, cfg149,
                                ("spectromel", "chroma_stats", "spectral_gate"), cpu_denoise=False)
+        profiles = {"request_149": profile_request(rng, dev, out_dir, cfg149)}
     print(f"serving 149: {json.dumps(serve)}")
     print(f"predict_clip p50 {serve['p50_ms']:.2f} ms over 8 requests, 149-dim ({card})")
 
@@ -487,18 +627,32 @@ def main() -> int:
         write_artifacts(rng, out_dir, dev, cfg286)
         serve286 = serve_requests(rng, dev, out_dir, cfg286, ("spectromel_mel", "spectral_gate"),
                                   cpu_denoise=True)
+        profiles["request_286"] = profile_request(rng, dev, out_dir, cfg286)
     print(f"serving 286: {json.dumps(serve286)}")
     print(f"predict_clip p50 {serve286['p50_ms']:.2f} ms over 8 requests, 286-dim, "
           f"prop_decrease 0.8 ({card})")
 
+    profiles.update(profile_batches(rng, dev))  # phase 6: where the device time goes
+    for name, prof in profiles.items():
+        print(f"profile {name}: {json.dumps(prof)} ({card})")
+
     # launches: each path's count, read just after it ran, summed over the paths
     paths = [serve["launches"], serve286["launches"], *corpus["launches"].values()]
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
-    rows = [("spectromel", sm["stats_max_err"], sm), ("spectromel_mel", mel["mel_max_abs_err"], mel),
-            ("chroma_stats", cs["max_err"], cs), ("spectral_gate", gt["max_err"], gt)]
+    # (name, max abs error, batch-shape result, request-shape result); no
+    # single PyTorch call computes any of these functions: library_ms null
+    rows = [("spectromel", sm["stats_max_err"], sm, sm1),
+            ("spectromel_mel", mel["mel_max_abs_err"], mel, mel1),
+            ("chroma_stats", cs["max_err"], cs, cs1), ("spectral_gate", gt["max_err"], gt, gt1)]
     kernels = [{"name": n, "route": "cuda", "source": KERNELS[n][0], "replaces": KERNELS[n][1],
                 "launches": launches[n], "max_abs_err": err, "ms": r["ms"],
-                "plain_ms": r["plain_ms"]} for n, err, r in rows]
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": None, "batch": r["B"], "request_ms": q["ms"],
+                "request_plain_ms": q["plain_ms"], "request_bound_ms": q["bound_ms"],
+                **({"stft_library_ms": r["stft_library_ms"],
+                    "request_stft_library_ms": q["stft_library_ms"]}
+                   if "stft_library_ms" in r else {})}
+               for n, err, r, q in rows]
     check(all(k["launches"] > 0 for k in kernels), f"a kernel never launched: {launches}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,9 @@ softmax; its corpus path denoises the corpus with per-file QC metrics
 (`preprocess`) and builds the feature cache (`extract_corpus`).  The
 Pallas kernels of these paths are hand-written CUDA here (`csrc/*.cu`),
 built with nvcc at first use; each has a plain PyTorch version that runs
-for CPU tensors.  Nothing in this package imports JAX.
+for CPU tensors.  Nothing in this package imports JAX or the JAX package:
+the configuration, corpus, cache, WAV / mp3, decoder-hook, filterbank and
+stage-timer modules it shares with `stutter_tpu` are its own copies.
 
 Public surface (lazily imported; `import stutter_tpu_torch as stt`):
 

@@ -44,7 +44,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--no-denoise", action="store_true")
     args = ap.parse_args(argv)
 
-    from stutter_tpu.config import FEATURES_149, FEATURES_334, PipelineConfig
+    from stutter_tpu_torch.config import FEATURES_149, FEATURES_334, PipelineConfig
     from stutter_tpu_torch.infer import resolve_device
 
     resolve_device(args.device)  # cuda without a GPU raises before anything is written

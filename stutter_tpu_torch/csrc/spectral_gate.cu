@@ -3,252 +3,362 @@
 // Replaces stutter_tpu/ops/pallas_denoise.py:spectral_gate_pallas (bodies
 // _gate_kernel, _affine_scan).  Hop-chunked padded audio [B, C, hop] ->
 // overlap-added output [B, T + 3, hop] (T = C - 3 frames, K = n_fft/2 + 1
-// bins), in four launches:
+// bins, n_fft = 4 hop in {512, 1024, 2048}), in three launches:
 //
-//  1. chunk_dft + gate_frames: the shared-chunk DFT STFT (chunk_stft.cuh:
-//     one GEMM for the chunk DFTs, then phase recombination and the 3-tap
-//     Hann per frame tile), writing yr, yi and |Y| [B, T, K] as scratch.
-//  2. gate_iir_mask: one thread per (clip, bin) runs noisereduce's
-//     filtfilt([b], [1, b-1]) with steady-state starts serially forward and
-//     backward over T (adjacent threads take adjacent bins, so loads
-//     coalesce), then the sigmoid mask sigmoid(((|Y| - s) / s - thresh) *
-//     slope), 0 where s == 0.
-//  3. gate_smooth: the separable triangular smoothing as a stencil in
-//     shared memory (33 taps in frequency, then 7 in time, zero 'same'
-//     padding), the prop_decrease blend, and the multiply into yr, yi.
-//  4. gate_istft: the IDFT of each frame against [K, n_fft] tables with the
-//     synthesis Hann and 1/N folded in, overlap-added as a gather -- output
-//     row r = sum over slots s of slot s of frame r - s -- which makes the
-//     whole iSTFT one GEMM (sgemm.cuh) over a depth of RATIO x 2 x K, with no
-//     atomics and a deterministic result; times the reciprocal
-//     window-sum-square.
+//  1. gate_analysis<M>, one block per (clip, tile of F frames): stages the
+//     tile's audio span (frames overlap 4x) in shared memory with cp.async,
+//     applies the periodic Hann in time, runs each frame's real FFT in
+//     shared memory (rfft_smem.cuh) and writes |Y| [B, T, K].
+//  2. gate_iir_mask, one block per (clip, tile of KB bins): stages the
+//     [T, KB] column tile of |Y| in shared memory with coalesced loads and
+//     runs noisereduce's filtfilt([b], [1, b-1]) with steady-state starts,
+//     forward then backward over T, as a chunked scan: 256 / KB threads per
+//     bin each scan a segment of time, then the segments' carries are
+//     chained and added back (y = local + a^n carry).  The sigmoid mask
+//     sigmoid(((|Y| - s) / s - thresh) * slope), 0 where s == 0, replaces
+//     |Y| in shared memory, and the mask smoother's time taps (zero 'same'
+//     padding) run down the whole column there; written to [B, T, K].
+//  3. gate_synth<M>, one block per (clip, tile of TT output hop-rows): loads
+//     the time-smoothed mask rows of frames r0 - 3 .. r0 + TT - 1 with a
+//     +-kf/2-bin zero halo, applies the frequency taps (4 outputs a thread
+//     from a sliding register window over rows kept in 4 bank planes) and
+//     blends prop_decrease; recomputes those frames' spectra by FFT from the
+//     audio instead of storing them; multiplies, runs the inverse real FFT,
+//     applies the synthesis Hann and 1/n_fft; overlap-adds inside the block
+//     as a gather -- row r is the sum over slots s < 4 of slot s of frame
+//     r - s, s in ascending order, no atomics, deterministic -- and
+//     multiplies by the reciprocal window-sum-square.  The separable
+//     smoothing runs time-then-frequency where the plain version runs
+//     frequency-then-time: the same sums in another rounding order.
 //
-// Bounds on an H100: the IDFT (launch 4, 2 * T * 2K * n_fft FLOPs: about
-// 0.9 GFLOP per clip of the 3 s bucket) and the chunk DFT (0.23 GFLOP) are
-// ~95 % of the FLOPs and are FP32 issue-bound on the CUDA cores; launches 2
-// and 3 each stream the [B, T, K] scratch through device memory a few times
-// (bandwidth-bound), and launch 2 is a serial dependency chain of length 2T
-// per thread.
-#include "chunk_stft.cuh"
+// Bounds on an H100: the FFTs are ~5 n log2 n / 2 FLOP a frame (3 a frame
+// with the recomputation) and the smoothing 2 (kf + kt) a bin, so the work
+// is bound by moving bytes: the audio in, |Y| out and back in, the mask out
+// and back in, the output out.  The dense DFT / IDFT GEMMs this design
+// replaces were FP32-issue-bound at ~1 GFLOP per 3 s clip; the old yr / yi
+// scratch is gone.  Launch 2 is a dependency chain over T; the chunked scan
+// cuts it to ~T / (256 / KB) steps a thread, out of shared memory.
+#include "rfft_smem.cuh"
 
-using namespace chunk_stft;
+using namespace rfft;
 
 namespace {
 
-constexpr int RATIO = 4;  // n_fft / hop: the gate's only geometry (1024 / 256)
+constexpr int RATIO = 4;      // n_fft / hop: the gate's only geometry
+constexpr int MAX_TAPS = 128;  // per axis of the mask smoother
 
-__global__ void gate_frames(const float* __restrict__ Z, int C, int T, int K,
-                            const float* __restrict__ pre, const float* __restrict__ pim,
-                            float* __restrict__ yr, float* __restrict__ yi,
-                            float* __restrict__ mag) {
+template <int M>
+__global__ void __launch_bounds__(THREADS)
+    gate_analysis(const float* __restrict__ sig, int C, int T, int hop, int F,
+                  const float* __restrict__ win, const float2* __restrict__ tw,
+                  float* __restrict__ mag) {
+  constexpr int K = M + 1, MP = frame_stride<M>();
   extern __shared__ __align__(16) float smem[];
-  float* Xr = smem;
-  float* Xi = Xr + TF * K;
+  float2* buf = reinterpret_cast<float2*>(smem);  // [F * MP] frames
+  float* span = smem + 2 * F * MP;                // [(F - 1) * hop + 2M] audio
   const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TF;
-  const int tf = min(TF, T - t0);
+  const int t0 = blockIdx.x * F;
+  const int tf = min(F, T - t0);
 
-  recombine_tile<RATIO>(Z, C, K, b, t0, tf, pre, pim, Xr, Xi);
+  stage_span(span, sig + (size_t)b * C * hop, (long)t0 * hop, (tf - 1) * hop + 2 * M,
+             (long)C * hop);
+  fft_windowed<M>(buf, tf, tw, span, hop, win);
+  float* out = mag + ((size_t)b * T + t0) * K;
+  for (int i = threadIdx.x; i < tf * K; i += THREADS) {
+    const int f = i / K, k = i - f * K;
+    const float2* z = buf + f * MP;
+    const float2 x = split(z[padded(k & (M - 1))], z[padded((M - k) & (M - 1))], __ldg(tw + k));
+    out[i] = sqrtf(x.x * x.x + x.y * x.y);
+  }
+}
+
+// The IIR, the sigmoid mask and the mask smoother's time taps (zero 'same'
+// padding), for a [T, KB] column tile; writes the time-smoothed mask.
+__global__ void __launch_bounds__(THREADS)
+    gate_iir_mask(const float* __restrict__ mag, float* __restrict__ mk, int T, int K, int KB,
+                  float bb, float a, float thresh, float slope,
+                  const float* __restrict__ t_taps, int kt) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float ts[MAX_TAPS];
+  const int S = THREADS / KB;  // time segments per bin
+  float* X = smem;             // [T * KB] |Y|, later the mask
+  float* Y = X + T * KB;       // [T * KB] forward, then backward, local results
+  float* L = Y + T * KB;       // [S * KB] a segment's local end value
+  float* P = L + S * KB;       // [S * KB] the product of its coefficients
+  float* Cin = P + S * KB;     // [S * KB] the true value entering it
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.x * KB;
+  const int kb = min(KB, K - k0);
+  const size_t base = (size_t)b * T * K + k0;
+
+  if (threadIdx.x < kt) ts[threadIdx.x] = t_taps[threadIdx.x];
+  for (int i = threadIdx.x; i < T * KB; i += THREADS) {
+    const int t = i / KB, c = i - t * KB;
+    cp_async4(X + i, mag + base + (size_t)t * K + (c < kb ? c : 0), c < kb);
+  }
+  cp_async_wait();
+
+  const int c = threadIdx.x % KB, s = threadIdx.x / KB;
+  const int len = (T + S - 1) / S;
+  const int ts0 = min(s * len, T), te = min(ts0 + len, T);
+
+  // forward: y[0] = x[0], y[t] = a y[t-1] + bb x[t] -- coefficient a_t (0
+  // at t = 0) and input u_t; local scan from 0, then y = local + (prod a) carry
+  float y = 0.f, p = 1.f;
+  for (int t = ts0; t < te; ++t) {
+    const float x = X[t * KB + c];
+    y = t == 0 ? x : a * y + bb * x;
+    p = t == 0 ? 0.f : p * a;
+    Y[t * KB + c] = y;
+  }
+  L[s * KB + c] = y;
+  P[s * KB + c] = p;
+  __syncthreads();
+  if (s == 0) {
+    float carry = 0.f;
+    for (int j = 0; j < S; ++j) {
+      Cin[j * KB + c] = carry;
+      carry = L[j * KB + c] + P[j * KB + c] * carry;
+    }
+  }
+  __syncthreads();
+  float carry = Cin[s * KB + c], q = 1.f;
+  for (int t = ts0; t < te; ++t) {
+    q = t == 0 ? 0.f : q * a;
+    Y[t * KB + c] += q * carry;
+  }
   __syncthreads();
 
-  const size_t o = ((size_t)b * T + t0) * K;
-  for (int i = threadIdx.x; i < tf * K; i += blockDim.x) {
-    const int t = i / K, k = i - t * K;
-    float r, im;
-    hann3(Xr + t * K, Xi + t * K, k, K, r, im);
-    yr[o + i] = r;
-    yi[o + i] = im;
-    mag[o + i] = sqrtf(r * r + im * im);
+  // backward over the forward pass: z[T-1] = f[T-1], z[t] = a z[t+1] + bb f[t]
+  y = 0.f;
+  p = 1.f;
+  for (int t = te - 1; t >= ts0; --t) {
+    const float f = Y[t * KB + c];
+    y = t == T - 1 ? f : a * y + bb * f;
+    p = t == T - 1 ? 0.f : p * a;
+    Y[t * KB + c] = y;
+  }
+  L[s * KB + c] = y;
+  P[s * KB + c] = p;
+  __syncthreads();
+  if (s == 0) {
+    float cin = 0.f;
+    for (int j = S - 1; j >= 0; --j) {
+      Cin[j * KB + c] = cin;
+      cin = L[j * KB + c] + P[j * KB + c] * cin;
+    }
+  }
+  __syncthreads();
+  carry = Cin[s * KB + c];
+  q = 1.f;
+  for (int t = te - 1; t >= ts0; --t) {
+    q = t == T - 1 ? 0.f : q * a;
+    const float z = Y[t * KB + c] + q * carry;
+    const float x = X[t * KB + c];
+    const float above = z > 0.f ? (x - z) / z : 0.f;
+    X[t * KB + c] = 1.f / (1.f + expf(-((above - thresh) * slope)));
+  }
+  __syncthreads();
+
+  const int pt = kt / 2;
+  for (int i = threadIdx.x; i < T * KB; i += THREADS) {
+    const int t = i / KB, cc = i - t * KB;
+    float acc = 0.f;
+    for (int j = 0; j < kt; ++j) {
+      const int u = t + j - pt;
+      if (u >= 0 && u < T) acc += ts[j] * X[u * KB + cc];
+    }
+    if (cc < kb) mk[base + (size_t)t * K + cc] = acc;
   }
 }
 
-constexpr int IIR_UNROLL = 8;  // loads issued ahead of the serial recurrence
+// Shared memory of gate_synth, in floats: the FFT region (the frames and the
+// audio span) aliased with the mask rows and their frequency halo, then the
+// smoothed mask.  The span ends where the frames end when it fits inside the
+// last FFT group's frames: the groups before never write there, and the
+// last group reads all of it in its first pass before it writes (a third
+// less shared memory: two blocks an SM at 16 frames of 512).  A mask row
+// keeps its columns in 4 planes (column c at (c mod 4) * planes + c / 4), so
+// that threads sliding 4-wide windows along a row read distinct banks.
+struct SynthLayout {
+  int planes, row, frames, span_end, region, mf;
+  __host__ __device__ SynthLayout(int M, int TT, int hop, int kf) {
+    const int K = M + 1, nf = TT + RATIO - 1, fs = 2 * (M + M / 16);
+    planes = (K + kf + 6 + 3) / 4;  // the last window reads up to column K + kf + 5
+    row = 4 * planes;
+    frames = nf * fs;
+    const int span = (nf - 1) * hop + 2 * M;
+    const int last_group = (TILE_POINTS / M) * ((nf - 1) / (TILE_POINTS / M));
+    span_end = span <= (nf - last_group) * fs ? frames : frames + span;
+    region = nf * row > span_end ? nf * row : span_end;
+    mf = nf * K;
+  }
+  __host__ __device__ size_t bytes() const { return sizeof(float) * ((size_t)region + mf); }
+};
 
-__global__ void gate_iir_mask(const float* __restrict__ mag, float* __restrict__ mk, int T, int K,
-                              float bb, float a, float thresh, float slope) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  const size_t base = (size_t)blockIdx.y * T * K + k;
-  const float* m = mag + base;
-  float* s = mk + base;
-  // forward: y[0] = x[0], y[t] = (1 - b) y[t-1] + b x[t]
-  float y = m[0];
-  s[0] = y;
-  int t = 1;
-  for (; t + IIR_UNROLL <= T; t += IIR_UNROLL) {
-    float x[IIR_UNROLL];
-#pragma unroll
-    for (int u = 0; u < IIR_UNROLL; ++u) x[u] = m[(size_t)(t + u) * K];
-#pragma unroll
-    for (int u = 0; u < IIR_UNROLL; ++u) {
-      y = a * y + bb * x[u];
-      s[(size_t)(t + u) * K] = y;
-    }
-  }
-  for (; t < T; ++t) {
-    y = a * y + bb * m[(size_t)t * K];
-    s[(size_t)t * K] = y;
-  }
-  // backward over the forward pass, then the mask in place of it
-  float z = y;
-  t = T - 1;
-  for (; t - IIR_UNROLL + 1 >= 0; t -= IIR_UNROLL) {
-    float f[IIR_UNROLL], x[IIR_UNROLL];
-#pragma unroll
-    for (int u = 0; u < IIR_UNROLL; ++u) {
-      f[u] = s[(size_t)(t - u) * K];
-      x[u] = m[(size_t)(t - u) * K];
-    }
-#pragma unroll
-    for (int u = 0; u < IIR_UNROLL; ++u) {
-      if (t - u < T - 1) z = a * z + bb * f[u];
-      const float above = z > 0.f ? (x[u] - z) / z : 0.f;
-      s[(size_t)(t - u) * K] = 1.f / (1.f + expf(-((above - thresh) * slope)));
-    }
-  }
-  for (; t >= 0; --t) {
-    if (t < T - 1) z = a * z + bb * s[(size_t)t * K];
-    const float mv = m[(size_t)t * K];
-    const float above = z > 0.f ? (mv - z) / z : 0.f;
-    s[(size_t)t * K] = 1.f / (1.f + expf(-((above - thresh) * slope)));
-  }
-}
-
-constexpr int SMOOTH_TT = 16;  // output frames per smoothing block
-constexpr int MAX_TAPS = 64;   // per axis
-
-__global__ void gate_smooth(const float* __restrict__ mk, float* __restrict__ yr,
-                            float* __restrict__ yi, int T, int K,
-                            const float* __restrict__ f_taps, int kf,
-                            const float* __restrict__ t_taps, int kt, float prop) {
+template <int M>
+__global__ void __launch_bounds__(THREADS)
+    gate_synth(const float* __restrict__ sig, int C, int T, int hop, int TT,
+               const float* __restrict__ win, const float2* __restrict__ tw,
+               const float* __restrict__ mk, const float* __restrict__ f_taps, int kf,
+               float prop, const float* __restrict__ winv, float* __restrict__ out) {
+  constexpr int K = M + 1, N = 2 * M, MP = frame_stride<M>();
   extern __shared__ __align__(16) float smem[];
-  __shared__ float fs[MAX_TAPS], ts[MAX_TAPS];
-  const int rows = SMOOTH_TT + kt - 1;
-  const int KW = K + kf - 1;    // a mask row with its zero frequency halo
-  float* A = smem;              // [rows * KW] mask rows with both halos
-  float* F = A + rows * KW;     // [rows * K] frequency-smoothed
+  __shared__ float fs[MAX_TAPS];
+  const SynthLayout lay(M, TT, hop, kf);
+  float* A = smem;                                // [nf * row] mask rows with halo, in planes
+  float2* buf = reinterpret_cast<float2*>(smem);  // [nf * MP] frames (aliases A)
+  float* Mf = smem + lay.region;                  // [nf * K] the blended mask
   const int b = blockIdx.y;
-  const int t0 = blockIdx.x * SMOOTH_TT;
-  const int pt = kt / 2, pf = kf / 2;
-  const size_t base = (size_t)b * T * K;
+  const int n_rows = T + RATIO - 1;
+  const int r0 = blockIdx.x * TT;
+  const int fa = max(r0 - (RATIO - 1), 0), fb = min(r0 + TT, T);
+  const int nf = fb - fa;
+  const int pf = kf / 2;
 
   if (threadIdx.x < kf) fs[threadIdx.x] = f_taps[threadIdx.x];
-  if (threadIdx.x < kt) ts[threadIdx.x] = t_taps[threadIdx.x];
-  for (int i = threadIdx.x; i < rows * KW; i += blockDim.x) {
-    const int r = i / KW, k = i - r * KW - pf;
-    const int t = t0 - pt + r;
-    A[i] = (t >= 0 && t < T && k >= 0 && k < K) ? mk[base + (size_t)t * K + k] : 0.f;
+  for (int i = threadIdx.x; i < nf * lay.row; i += THREADS) {
+    const int r = i / lay.row, c = i - r * lay.row, k = c - pf;
+    const bool ok = k >= 0 && k < K;
+    cp_async4(A + r * lay.row + (c & 3) * lay.planes + (c >> 2),
+              mk + ((size_t)b * T + fa + r) * K + (ok ? k : 0), ok);
+  }
+  cp_async_wait();
+  // frequency taps over 4 outputs a thread, from a sliding window
+  constexpr int G4 = (K + 3) / 4;
+  for (int i = threadIdx.x; i < nf * G4; i += THREADS) {
+    const int f = i / G4, k0 = (i - f * G4) * 4;
+    const float* row = A + f * lay.row;
+    const int pl = lay.planes;
+    auto at = [row, pl](int c) { return row[(c & 3) * pl + (c >> 2)]; };
+    float w0 = at(k0), w1 = at(k0 + 1), w2 = at(k0 + 2), w3 = at(k0 + 3);
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+    for (int j = 0; j < kf; ++j) {
+      const float t = fs[j];
+      a0 += t * w0;
+      a1 += t * w1;
+      a2 += t * w2;
+      a3 += t * w3;
+      w0 = w1;
+      w1 = w2;
+      w2 = w3;
+      w3 = at(k0 + 4 + j);
+    }
+    float* m = Mf + f * K + k0;
+    m[0] = a0 * prop + (1.f - prop);
+    if (k0 + 1 < K) m[1] = a1 * prop + (1.f - prop);
+    if (k0 + 2 < K) m[2] = a2 * prop + (1.f - prop);
+    if (k0 + 3 < K) m[3] = a3 * prop + (1.f - prop);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < rows * K; i += blockDim.x) {
-    const int r = i / K, k = i - r * K;
-    const float* a = A + r * KW + k;
-    float acc = 0.f;
-    for (int j = 0; j < kf; ++j) acc += fs[j] * a[j];
-    F[i] = acc;
+
+  // the frames' spectra again, from the audio
+  const int span_len = (nf - 1) * hop + N;
+  float* span = smem + lay.span_end - span_len;
+  stage_span(span, sig + (size_t)b * C * hop, (long)fa * hop, span_len, (long)C * hop);
+  fft_windowed<M>(buf, nf, tw, span, hop, win);
+
+  // per bin pair (p, M - p): split, mask, undo the split, conjugate
+  constexpr int PAIRS = M / 2 + 1;
+  for (int i = threadIdx.x; i < nf * PAIRS; i += THREADS) {
+    const int f = i / PAIRS, p = i - f * PAIRS, q = M - p;
+    float2* z = buf + f * MP;
+    const float* m = Mf + f * K;
+    const float2 za = z[padded(p)], zb = z[padded(q & (M - 1))];
+    const float2 wp = __ldg(tw + p), wq = __ldg(tw + q);
+    float2 yp = split(za, zb, wp), yq = split(zb, za, wq);
+    yp = make_float2(yp.x * m[p], yp.y * m[p]);
+    yq = make_float2(yq.x * m[q], yq.y * m[q]);
+    z[padded(p)] = unsplit_conj(yp, yq, wp);
+    if (p > 0 && q != p) z[padded(q)] = unsplit_conj(yq, yp, wq);
   }
   __syncthreads();
-  const int tf = min(SMOOTH_TT, T - t0);
-  for (int i = threadIdx.x; i < tf * K; i += blockDim.x) {
-    const int t = i / K, k = i - t * K;
+  fft<M>(buf, nf, tw);
+  const float scale = 1.f / N;
+  const float2* w2 = reinterpret_cast<const float2*>(win);
+  for (int i = threadIdx.x; i < nf * M; i += THREADS) {
+    const int f = i / M, m = i - f * M;
+    float2* z = buf + f * MP + padded(m);
+    const float2 g = *z, w = __ldg(w2 + m);
+    *z = make_float2(g.x * scale * w.x, -g.y * scale * w.y);
+  }
+  __syncthreads();
+
+  // overlap-add as a gather: sample n of frame f is component n % 2 of
+  // point n / 2 of its buffer frame
+  const float* xs = reinterpret_cast<const float*>(buf);
+  const int rt = min(TT, n_rows - r0);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < rt * hop; i += THREADS) {
+    const int r = r0 + i / hop, j = i % hop;
     float acc = 0.f;
-    for (int j = 0; j < kt; ++j) acc += ts[j] * F[(t + j) * K + k];
-    const float m = acc * prop + (1.f - prop);
-    const size_t o = base + (size_t)(t0 + t) * K + k;
-    yr[o] *= m;
-    yi[o] *= m;
+#pragma unroll
+    for (int s = 0; s < RATIO; ++s) {
+      const int f = r - s, n = s * hop + j;
+      if (f >= 0 && f < T) acc += xs[2 * ((f - fa) * MP + padded(n >> 1)) + (n & 1)];
+    }
+    out[((size_t)b * n_rows + r) * hop + j] = acc * winv[(size_t)r * hop + j];
   }
 }
 
-// Output row r of the overlap-add is the sum over slots s of slot s of
-// frame r - s: per slot and part (re, im), A = that part of Y with its rows
-// shifted down by s, B = the columns [s * hop, (s + 1) * hop) of the IDFT
-// table, accumulated into one tile.
-template <int TM>
-__global__ void __launch_bounds__(sgemm::THREADS)
-    gate_istft(const float* __restrict__ yr, const float* __restrict__ yi,
-               const float* __restrict__ cr, const float* __restrict__ ci,
-               const float* __restrict__ winv, int T, int K, int hop, int n_fft,
-               float* __restrict__ out) {
-  constexpr int S = sgemm::Geometry<TM>::S;
-  const int b = blockIdx.z;
+template <int M>
+cudaError_t launch_gate(const float* sig, const float* win, const float2* tw,
+                        const float* f_taps, const float* t_taps, const float* winv,
+                        float* mag, float* mk, float* out, int B, int C, int hop, int kf, int kt,
+                        int F, int KB, int TT, float bb, float a, float thresh, float slope,
+                        float prop, cudaStream_t s) {
+  const int T = C - RATIO + 1;
+  const size_t smem1 =
+      sizeof(float) * ((size_t)2 * F * frame_stride<M>() + (F - 1) * hop + 2 * M);
+  const size_t smem2 = sizeof(float) * ((size_t)2 * T * KB + 3 * THREADS);
+  const SynthLayout lay(M, TT, hop, kf);
+  if (F < 1 || F * M > TILE_POINTS || TT < 1 || smem1 > MAX_SMEM || smem2 > MAX_SMEM ||
+      lay.bytes() > MAX_SMEM)
+    return cudaErrorInvalidValue;
+
+  cudaError_t err = cudaFuncSetAttribute(gate_analysis<M>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+  if (err != cudaSuccess) return err;
+  gate_analysis<M><<<dim3((T + F - 1) / F, B), THREADS, smem1, s>>>(sig, C, T, hop, F, win, tw,
+                                                                    mag);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  err = cudaFuncSetAttribute(gate_iir_mask, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem2);
+  if (err != cudaSuccess) return err;
+  gate_iir_mask<<<dim3((M + 1 + KB - 1) / KB, B), THREADS, smem2, s>>>(
+      mag, mk, T, M + 1, KB, bb, a, thresh, slope, t_taps, kt);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  err = cudaFuncSetAttribute(gate_synth<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)lay.bytes());
+  if (err != cudaSuccess) return err;
   const int n_rows = T + RATIO - 1;
-  const int m0 = blockIdx.y * S, n0 = blockIdx.x * S;
-  const size_t base = (size_t)b * T * K;
-  float acc[TM][TM];
-  sgemm::zero(acc);
-  for (int s = 0; s < RATIO; ++s) {
-    for (int part = 0; part < 2; ++part) {
-      const sgemm::Dense A{(part ? yi : yr) + base, T, K, K, s};
-      const sgemm::Dense W{(part ? ci : cr) + s * hop, K, hop, n_fft, 0};
-      sgemm::tile(m0, n0, K, A, W, acc);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = m0 + sgemm::row_of(i);
-    if (r >= n_rows) continue;
-#pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      const int c = n0 + sgemm::col_of(j);
-      if (c < hop)
-        out[((size_t)b * n_rows + r) * hop + c] = acc[i][j] * winv[(size_t)r * hop + c];
-    }
-  }
+  gate_synth<M><<<dim3((n_rows + TT - 1) / TT, B), THREADS, lay.bytes(), s>>>(
+      sig, C, T, hop, TT, win, tw, mk, f_taps, kf, prop, winv, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int spectral_gate_launch(const void* chunks, const void* tab, const void* pre,
-                                    const void* pim, const void* f_taps, const void* t_taps,
-                                    const void* cr, const void* ci, const void* winv, void* Z,
-                                    void* yr, void* yi, void* mag, void* mk, void* out, int B,
-                                    int C, int n_fft, int hop, int kf, int kt, float bb, float a,
-                                    float thresh, float slope, float prop, void* stream) {
-  if (n_fft != RATIO * hop || hop % sgemm::BK != 0 || C < RATIO || kf > MAX_TAPS ||
-      kt > MAX_TAPS)
+// F: frames per analysis tile; KB: bins per IIR tile (a power of two <= 32);
+// TT: output hop-rows per synthesis tile.
+extern "C" int spectral_gate_launch(const void* chunks, const void* win, const void* tw,
+                                    const void* f_taps, const void* t_taps, const void* winv,
+                                    void* mag, void* mk, void* out, int B, int C, int n_fft,
+                                    int hop, int kf, int kt, int F, int KB, int TT, float bb,
+                                    float a, float thresh, float slope, float prop, void* stream) {
+  if (n_fft != RATIO * hop || C < RATIO || kf < 1 || kt < 1 || kf > MAX_TAPS || kt > MAX_TAPS ||
+      KB < 2 || KB > 32 || (KB & (KB - 1)) != 0)
     return (int)cudaErrorInvalidValue;
-  const int K = n_fft / 2 + 1;
-  const int T = C - RATIO + 1;
   cudaStream_t s = (cudaStream_t)stream;
-
-  // the chunks arrive padded: each clip is C * hop samples, no extra padding
-  cudaError_t err = launch_chunk_dft((const float*)chunks, C * hop, B, C, 0, hop,
-                                     (const float*)tab, K, (float*)Z, s);
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem1 = tile_smem_bytes(K);
-  err = cudaFuncSetAttribute(gate_frames, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-  if (err != cudaSuccess) return (int)err;
-  gate_frames<<<dim3((T + TF - 1) / TF, B), threads_for(K), smem1, s>>>(
-      (const float*)Z, C, T, K, (const float*)pre, (const float*)pim, (float*)yr, (float*)yi,
-      (float*)mag);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  gate_iir_mask<<<dim3((K + 127) / 128, B), 128, 0, s>>>((const float*)mag, (float*)mk, T, K, bb,
-                                                         a, thresh, slope);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const size_t smem3 = sizeof(float) * (size_t)(SMOOTH_TT + kt - 1) * (2 * K + kf - 1);
-  err = cudaFuncSetAttribute(gate_smooth, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem3);
-  if (err != cudaSuccess) return (int)err;
-  gate_smooth<<<dim3((T + SMOOTH_TT - 1) / SMOOTH_TT, B), 256, smem3, s>>>(
-      (const float*)mk, (float*)yr, (float*)yi, T, K, (const float*)f_taps, kf,
-      (const float*)t_taps, kt, prop);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const int n_rows = T + RATIO - 1;
-  const int tm = sgemm::pick_tm(n_rows, hop, B);
-  const dim3 grid = sgemm::grid_for(tm, n_rows, hop, B);
-  if (tm == 8)
-    gate_istft<8><<<grid, sgemm::THREADS, 0, s>>>((const float*)yr, (const float*)yi,
-                                                  (const float*)cr, (const float*)ci,
-                                                  (const float*)winv, T, K, hop, n_fft,
-                                                  (float*)out);
-  else
-    gate_istft<4><<<grid, sgemm::THREADS, 0, s>>>((const float*)yr, (const float*)yi,
-                                                  (const float*)cr, (const float*)ci,
-                                                  (const float*)winv, T, K, hop, n_fft,
-                                                  (float*)out);
-  return (int)cudaGetLastError();
+  decltype(&launch_gate<512>) launch = nullptr;
+  if (n_fft == 512) launch = &launch_gate<256>;
+  if (n_fft == 1024) launch = &launch_gate<512>;
+  if (n_fft == 2048) launch = &launch_gate<1024>;
+  if (launch == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch((const float*)chunks, (const float*)win, (const float2*)tw,
+                     (const float*)f_taps, (const float*)t_taps, (const float*)winv, (float*)mag,
+                     (float*)mk, (float*)out, B, C, hop, kf, kt, F, KB, TT, bb, a, thresh, slope,
+                     prop, s);
 }

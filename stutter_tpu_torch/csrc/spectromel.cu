@@ -2,35 +2,36 @@
 //
 // Replaces stutter_tpu/ops/pallas_spectromel.py:spectromel_pallas with
 // with_tuning=True (body _spectromel_kernel, _candidates_of, _mfcc_stats_of)
-// in both of its output modes:
+// in both of its output modes, at n_fft 512, 1024 or 2048 and any even hop
+// that divides the bucket:
 //
-//  * stats mode (with_stats=True; the 149-dim front end, n_fft = 4 * hop):
-//    power [B, T, K], MFCC/delta statistics [B, 6, n_mfcc], tuning bin [B];
-//    launches 1-5 below (`spectromel_launch`).
+//  * stats mode (with_stats=True; the 149-dim front end): power [B, T, K],
+//    MFCC/delta statistics [B, 6, n_mfcc], tuning bin [B]; launches 1-3
+//    below (`spectromel_launch`).
 //  * mel-output mode (with_stats=False; the 286-dim variant at n_fft 512,
 //    hop 256, through ops/frontend.py:spect_mel_db): power [B, T, K], the
-//    linear mel spectrum [B, T, M] and the tuning bin [B]; launches 1, 2, 3
-//    and 5 (`spectromel_mel_launch`), for n_fft / hop = 2 or 4.  Launch 4
-//    is not run: at the variant's 10 s bucket its per-clip MFCC/delta
-//    buffers would need 3 * 641 * 40 * 4 B = 307 KB of shared memory, over
-//    the 227 KB a block can get, and the variant reduces the mel spectrum
-//    in plain PyTorch (ops/frontend334.py) as the JAX package does in XLA.
+//    linear mel spectrum [B, T, M] and the tuning bin [B]; launches 1 and 3
+//    (`spectromel_mel_launch`).  The variant reduces the mel spectrum in
+//    plain PyTorch (ops/frontend334.py) as the JAX package does in XLA.
 //
-//  1. chunk_dft (chunk_stft.cuh): Z = hop chunks x [cos | sin], one GEMM
-//     over all clips' chunks, read straight from the audio.
-//  2. spectromel_frames<R>, one block per (clip, tile of TF frames): X from
-//     Z (phase recombination over R = n_fft / hop slots), the 3-tap Hann,
-//     |.|^2 and the frame mask -> power [B, T, K] (the chroma kernel reads
-//     it too); then, on the tile's power in shared memory, each frame's max
-//     and the piptrack candidates of the 150-4000 Hz band in the port's
-//     uncompacted layout (mags, residual bin as f32 or -1).
-//  3. mel_gemm: mel [B * T, M] = power x mel filterbank^T.
-//  4. spectromel_stats (stats mode only), one block per clip: librosa
-//     power_to_db with the 80 dB clamp under the max over valid frames, the
+//  1. spectromel_frames<M>, one block per (clip, tile of F frames; F
+//     follows B x T so that a single request still spreads over the SMs):
+//     stages the tile's audio span in shared memory with cp.async (frames
+//     overlap n_fft / hop times), applies the periodic Hann in time, runs
+//     each frame's real FFT in shared memory (rfft_smem.cuh), and from the
+//     same values computes |.|^2 under the frame mask, written once as power
+//     (the chroma kernel reads it), each frame's max, the piptrack
+//     candidates of the 150-4000 Hz band in the port's uncompacted layout
+//     (mags, residual bin as f32 or -1), and the mel spectrum as a sum over
+//     each band's nonzero bin range (a host table [start, length, offset]
+//     plus the weights, which rebuilds mel_fb exactly; ops/consts.py) --
+//     in stats mode already in dB (10 log10 max(mel, 1e-10)), once a value.
+//  2. spectromel_stats (stats mode only), one block per clip: librosa
+//     power_to_db's 80 dB clamp under the max over valid frames, the
 //     orthonormal DCT-II, SavGol delta and delta-delta (width 9; interior
 //     taps, static first edge, last edge at the clip's own n_valid), and the
 //     masked mean and population std -> stats [B, 6, n_mfcc].
-//  5. tuning_tail, one block per clip: the tuning bin from the candidates,
+//  3. tuning_tail, one block per clip: the tuning bin from the candidates,
 //     as ops/chroma.py:tuning_bin_from_candidates (XLA in the JAX package,
 //     stutter_tpu/ops/chroma.py:213) computes it -- the exact median of the
 //     candidate magnitudes by radix selection on order-preserving u32 keys,
@@ -38,24 +39,22 @@
 //     or above it (integer shared-memory counts, so exact), bin 50 when
 //     there is no candidate.
 //
-// Bounds on an H100: the chunk DFT GEMM, [B * C, hop] x [hop, 2K], is ~90 %
-// of the FLOPs (0.21 GFLOP per 3 s clip) and is bound by FP32 issue on the
-// CUDA cores (TF32 tensor cores would break the 1e-5 power bound).  Z
-// (0.8 MB per 3 s clip) and the power make a round trip through device
-// memory, which costs far less than the GEMM at 3.35 TB/s.  A clip's power
-// (97 x 1025 f32 at 3 s) does not fit in one SM's shared memory, hence frame
-// tiles and the per-clip stats launch.  At the variant's geometry (K = 257,
-// ratio 2) the chunk DFT is 8x smaller per sample and the mel GEMM (inner
-// dimension 257, ragged against the 8-deep k tiles, which read zeros past
-// it) and the candidate pass over the longer frame axis (641 frames x 123
-// bins per 10 s clip) weigh more.
+// Bounds on an H100: launch 1 reads the audio once (from shared memory
+// n_fft / hop times) and writes power, mel and the two candidate arrays;
+// its FFTs are ~5 n log2 n / 2 FLOP a frame, far below the FP32 rate, so
+// the launch is bound by those bytes, which the dense chunk-DFT GEMM of the
+// earlier design (FP32-issue-bound, ~0.2 GFLOP per 3 s clip) and its chunk
+// scratch are no longer in the way of.  A clip's power (97 x 1025 f32 at
+// 3 s) does not fit one SM's shared memory, hence frame tiles, the mel
+// written for launch 2, and the per-clip stats launch.
 //
 // The candidate arithmetic uses __f*_rn intrinsics, which the compiler never
 // fuses into FMAs: every operation rounds as the plain PyTorch version's
-// separate elementwise ops do, so the tuning bin matches exactly.
-#include "chunk_stft.cuh"
+// separate elementwise ops do, so the tuning bin computed from the kernel's
+// own power matches the plain estimate on that power exactly.
+#include "rfft_smem.cuh"
 
-using namespace chunk_stft;
+using namespace rfft;
 
 namespace {
 
@@ -70,19 +69,18 @@ __device__ inline void candidate_at(const float* P, int k, float fmax, float rb,
                                     float& mag, float& idx) {
   const float ref = __fmul_rn(0.1f, fmax);
   const float sb = P[k], hm = P[k - 1], hp = P[k + 1];
+  const float g = sb > ref ? sb : 0.f;
+  const float gm = hm > ref ? hm : 0.f;
+  const float gp = hp > ref ? hp : 0.f;
+  mag = 0.f;
+  idx = -1.f;
+  if (!((g > gm) && (g >= gp))) return;  // not a local maximum: no division needed
   const float avg = __fmul_rn(0.5f, __fsub_rn(hp, hm));
   const float den = __fsub_rn(__fsub_rn(__fmul_rn(2.0f, sb), hp), hm);
   const float shift = __fdiv_rn(avg, __fadd_rn(den, fabsf(den) < F32_TINY ? 1.0f : 0.0f));
   const float dskew = __fmul_rn(__fmul_rn(0.5f, avg), shift);
-  const float g = sb > ref ? sb : 0.f;
-  const float gm = hm > ref ? hm : 0.f;
-  const float gp = hp > ref ? hp : 0.f;
   const float binf = (float)k;
-  if (!((g > gm) && (g >= gp) && (__fadd_rn(binf, shift) > 0.f))) {
-    mag = 0.f;
-    idx = -1.f;
-    return;
-  }
+  if (!(__fadd_rn(binf, shift) > 0.f)) return;
   const float u = __fdiv_rn(shift, fmaxf(binf, 1.0f));
   float p = __fmul_rn(u, (float)(-1.0 / 8));
   p = __fmul_rn(u, __fadd_rn((float)(1.0 / 7), p));
@@ -100,64 +98,75 @@ __device__ inline void candidate_at(const float* P, int k, float fmax, float rb,
   idx = fminf(fmaxf(bin, 0.f), 99.f);
 }
 
-template <int R>
-__global__ void spectromel_frames(const float* __restrict__ Z, const int* __restrict__ lengths,
-                                  int C, int T, int K, int hop, const float* __restrict__ pre,
-                                  const float* __restrict__ pim, const float* __restrict__ rtab,
-                                  int lo, int hi, float c_ln2, float* __restrict__ power,
-                                  float* __restrict__ mags, float* __restrict__ idxm) {
+__device__ inline float db_of(float x) { return 10.0f * log10f(fmaxf(x, 1e-10f)); }
+
+// One block per (clip, tile of F frames): power, mel (in dB when `db`: the
+// stats mode's only use of it) and candidates.
+template <int M>
+__global__ void __launch_bounds__(THREADS)
+    spectromel_frames(const float* __restrict__ audio, const int* __restrict__ lengths, int N,
+                      int T, int hop, int F, const float* __restrict__ win,
+                      const float2* __restrict__ tw, const int* __restrict__ mel_ranges,
+                      const float* __restrict__ mel_w, int n_mels,
+                      const float* __restrict__ rtab, int lo, int hi, float c_ln2, int db,
+                      float* __restrict__ power, float* __restrict__ mel,
+                      float* __restrict__ mags, float* __restrict__ idxm) {
+  constexpr int K = M + 1, NFFT = 2 * M, MP = frame_stride<M>();
   extern __shared__ __align__(16) float smem[];
-  float* Xr = smem;          // [TF * K] X real, later the tile's power
-  float* Xi = Xr + TF * K;   // [TF * K] X imaginary
-  __shared__ float fmax_s[TF];
+  float2* buf = reinterpret_cast<float2*>(smem);  // [F * MP] frames
+  float* span = smem + 2 * F * MP;                // [(F - 1) * hop + n_fft] audio, 8-byte aligned
+  float* P = span + (F - 1) * hop + NFFT;         // [F * K] the tile's power
+  __shared__ float fmax_s[TILE_POINTS / 256];
 
   const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TF;
-  const int tf = min(TF, T - t0);
+  const int t0 = blockIdx.x * F;
+  const int tf = min(F, T - t0);
   const int nv = 1 + lengths[b] / hop;
 
-  recombine_tile<R>(Z, C, K, b, t0, tf, pre, pim, Xr, Xi);
-  __syncthreads();
+  // centred frames: frame t starts at sample t * hop - n_fft / 2 (zeros outside)
+  stage_span(span, audio + (size_t)b * N, (long)t0 * hop - NFFT / 2, (tf - 1) * hop + NFFT, N);
+  fft_windowed<M>(buf, tf, tw, span, hop, win);
 
-  float* P = power + ((size_t)b * T + t0) * K;
-  for (int i = threadIdx.x; i < tf * K; i += blockDim.x) {
-    const int t = i / K, k = i - t * K;
-    float yr, yi;
-    hann3(Xr + t * K, Xi + t * K, k, K, yr, yi);
-    P[i] = (t0 + t < nv) ? yr * yr + yi * yi : 0.f;
+  float* out = power + ((size_t)b * T + t0) * K;
+  for (int i = threadIdx.x; i < tf * K; i += THREADS) {
+    const int f = i / K, k = i - f * K;
+    const float2* z = buf + f * MP;
+    const float2 x = split(z[padded(k & (M - 1))], z[padded((M - k) & (M - 1))], __ldg(tw + k));
+    const float p = (t0 + f < nv) ? x.x * x.x + x.y * x.y : 0.f;
+    P[i] = p;
+    out[i] = p;
   }
-  __syncthreads();  // makes the block's global writes visible to the block
-  for (int i = threadIdx.x; i < tf * K; i += blockDim.x) Xr[i] = P[i];
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-  for (int t = warp; t < tf; t += nwarps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int f = warp; f < tf; f += THREADS / 32) {
     float m = -INFINITY;
-    for (int k = lane; k < K; k += 32) m = fmaxf(m, Xr[t * K + k]);
+    for (int k = lane; k < K; k += 32) m = fmaxf(m, P[f * K + k]);
     m = warp_max(m);
-    if (lane == 0) fmax_s[t] = m;
+    if (lane == 0) fmax_s[f] = m;
   }
   __syncthreads();
 
   const int W = hi - lo;
-  for (int i = threadIdx.x; i < tf * W; i += blockDim.x) {
-    const int t = i / W, j = i - t * W;
+  for (int i = threadIdx.x; i < tf * W; i += THREADS) {
+    const int f = i / W, j = i - f * W;
     float mg, ix;
-    candidate_at(Xr + t * K, lo + j, fmax_s[t], rtab[lo + j], c_ln2, mg, ix);
-    const size_t o = ((size_t)b * T + t0 + t) * W + j;
+    candidate_at(P + f * K, lo + j, fmax_s[f], __ldg(rtab + lo + j), c_ln2, mg, ix);
+    const size_t o = ((size_t)b * T + t0 + f) * W + j;
     mags[o] = mg;
     idxm[o] = ix;
   }
-}
 
-template <int TM>
-__global__ void __launch_bounds__(sgemm::THREADS)
-    mel_gemm(sgemm::Dense power, sgemm::Dense melT, float* __restrict__ mel) {
-  constexpr int S = sgemm::Geometry<TM>::S;
-  float acc[TM][TM];
-  sgemm::zero(acc);
-  sgemm::tile(blockIdx.y * S, blockIdx.x * S, power.cols, power, melT, acc);
-  sgemm::store(mel, power.rows, melT.cols, melT.cols, blockIdx.y * S, blockIdx.x * S, acc);
+  // mel band m: the sum over its nonzero bins [start, start + len)
+  for (int i = threadIdx.x; i < tf * n_mels; i += THREADS) {
+    const int f = i / n_mels, m = i - f * n_mels;
+    const int start = __ldg(mel_ranges + 3 * m), len = __ldg(mel_ranges + 3 * m + 1);
+    const float* w = mel_w + __ldg(mel_ranges + 3 * m + 2);
+    const float* p = P + f * K + start;
+    float acc = 0.f;
+    for (int j = 0; j < len; ++j) acc += p[j] * __ldg(w + j);
+    mel[((size_t)b * T + t0) * n_mels + i] = db ? db_of(acc) : acc;
+  }
 }
 
 __device__ inline float block_max(float v, float* red) {
@@ -176,8 +185,6 @@ __device__ inline float block_max(float v, float* red) {
   return v;
 }
 
-__device__ inline float db_of(float x) { return 10.0f * log10f(fmaxf(x, 1e-10f)); }
-
 __global__ void spectromel_stats(const float* __restrict__ mel, const int* __restrict__ lengths,
                                  int T, int M, int hop, const float* __restrict__ dctT, int C,
                                  const float* __restrict__ sg, float* __restrict__ stats) {
@@ -192,14 +199,14 @@ __global__ void spectromel_stats(const float* __restrict__ mel, const int* __res
   const float* X = mel + (size_t)b * T * M;
 
   float m = -INFINITY;
-  for (int i = threadIdx.x; i < nv * M; i += blockDim.x) m = fmaxf(m, db_of(X[i]));
+  for (int i = threadIdx.x; i < nv * M; i += blockDim.x) m = fmaxf(m, X[i]);
   const float floor_db = block_max(m, red) - 80.0f;
 
   for (int i = threadIdx.x; i < T * C; i += blockDim.x) {
     const int t = i / C, c = i - t * C;
     const float* row = X + (size_t)t * M;
     float acc = 0.f;
-    for (int j = 0; j < M; ++j) acc += fmaxf(db_of(row[j]), floor_db) * dctT[j * C + c];
+    for (int j = 0; j < M; ++j) acc += fmaxf(row[j], floor_db) * dctT[j * C + c];
     mf[i] = acc;
   }
   __syncthreads();
@@ -331,59 +338,62 @@ __global__ void tuning_tail(const float* __restrict__ mags, const float* __restr
   }
 }
 
-// Launches 1-3 at ratio R = n_fft / hop: power, mel and the candidates.
-template <int R>
-cudaError_t launch_front(const float* audio, const int* lengths, const float* tab,
-                         const float* pre, const float* pim, const float* melT,
-                         const float* rtab, float* Z, float* power, float* mel, float* mags,
-                         float* idxm, int B, int N, int n_fft, int hop, int M, int lo, int hi,
-                         float c_ln2, cudaStream_t s) {
-  const int K = n_fft / 2 + 1;
+template <int M>
+cudaError_t launch_frames(const float* audio, const int* lengths, const float* win,
+                          const float2* tw, const int* mel_ranges, const float* mel_w,
+                          const float* rtab, float* power, float* mel, float* mags, float* idxm,
+                          int B, int N, int hop, int F, int n_mels, int lo, int hi, float c_ln2,
+                          int db, cudaStream_t s) {
   const int T = N / hop + 1;
-  const int n_chunks = T + R - 1;
-  cudaError_t err = launch_chunk_dft(audio, N, B, n_chunks, n_fft / 2, hop, tab, K, Z, s);
+  const size_t smem =
+      sizeof(float) * ((size_t)2 * F * frame_stride<M>() + F * (M + 1) + (F - 1) * hop + 2 * M);
+  if (F * M > TILE_POINTS || smem > MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(spectromel_frames<M>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-
-  const size_t smem = tile_smem_bytes(K);
-  err = cudaFuncSetAttribute(spectromel_frames<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  spectromel_frames<R><<<dim3((T + TF - 1) / TF, B), threads_for(K), smem, s>>>(
-      Z, lengths, n_chunks, T, K, hop, pre, pim, rtab, lo, hi, c_ln2, power, mags, idxm);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  const sgemm::Dense P{power, B * T, K, K, 0};
-  const sgemm::Dense Mt{melT, K, M, M, 0};
-  if (sgemm::pick_tm(B * T, M, 1) == 8)
-    mel_gemm<8><<<sgemm::grid_for(8, B * T, M, 1), sgemm::THREADS, 0, s>>>(P, Mt, mel);
-  else
-    mel_gemm<4><<<sgemm::grid_for(4, B * T, M, 1), sgemm::THREADS, 0, s>>>(P, Mt, mel);
+  spectromel_frames<M><<<dim3((T + F - 1) / F, B), THREADS, smem, s>>>(
+      audio, lengths, N, T, hop, F, win, tw, mel_ranges, mel_w, n_mels, rtab, lo, hi, c_ln2, db,
+      power, mel, mags, idxm);
   return cudaGetLastError();
 }
 
-bool bad_geometry(int N, int n_fft, int hop, int lo, int hi) {
-  return hop % sgemm::BK != 0 || N % hop != 0 || lo < 1 || hi >= n_fft / 2 + 1;
+// Launch 1 at any supported n_fft (512, 1024 or 2048), even hop, hop | N.
+cudaError_t launch_front(const void* audio, const void* lengths, const void* win, const void* tw,
+                         const void* mel_ranges, const void* mel_w, const void* rtab,
+                         void* power, void* mel, void* mags, void* idxm, int B, int N, int n_fft,
+                         int hop, int F, int n_mels, int lo, int hi, float c_ln2, int db,
+                         cudaStream_t s) {
+  if (hop < 2 || hop % 2 != 0 || N % hop != 0 || F < 1 || lo < 1 || hi >= n_fft / 2 + 1 ||
+      lo >= hi)
+    return cudaErrorInvalidValue;
+  decltype(&launch_frames<256>) launch = nullptr;
+  if (n_fft == 512) launch = &launch_frames<256>;
+  if (n_fft == 1024) launch = &launch_frames<512>;
+  if (n_fft == 2048) launch = &launch_frames<1024>;
+  if (launch == nullptr) return cudaErrorInvalidValue;
+  return launch((const float*)audio, (const int*)lengths, (const float*)win, (const float2*)tw,
+                (const int*)mel_ranges, (const float*)mel_w, (const float*)rtab, (float*)power,
+                (float*)mel, (float*)mags, (float*)idxm, B, N, hop, F, n_mels, lo, hi, c_ln2, db, s);
 }
 
 }  // namespace
 
-// Stats mode (launches 1-5), n_fft == 4 * hop.
-extern "C" int spectromel_launch(const void* audio, const void* lengths, const void* tab,
-                                 const void* pre, const void* pim, const void* melT,
-                                 const void* rtab, const void* dctT, const void* sg, void* Z,
-                                 void* power, void* mel, void* mags, void* idxm, void* stats,
-                                 void* tb, int B, int N, int n_fft, int hop, int M, int C, int lo,
-                                 int hi, float c_ln2, void* stream) {
-  if (n_fft != 4 * hop || bad_geometry(N, n_fft, hop, lo, hi)) return (int)cudaErrorInvalidValue;
-  const int T = N / hop + 1;
+// Stats mode: launches 1, 2 and 3.  F: frames per tile of launch 1.
+extern "C" int spectromel_launch(const void* audio, const void* lengths, const void* win,
+                                 const void* tw, const void* mel_ranges, const void* mel_w,
+                                 const void* rtab, const void* dctT, const void* sg, void* power,
+                                 void* mel, void* mags, void* idxm, void* stats, void* tb, int B,
+                                 int N, int n_fft, int hop, int F, int M, int C, int lo, int hi,
+                                 float c_ln2, void* stream) {
+  if (hop < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = launch_front<4>(
-      (const float*)audio, (const int*)lengths, (const float*)tab, (const float*)pre,
-      (const float*)pim, (const float*)melT, (const float*)rtab, (float*)Z, (float*)power,
-      (float*)mel, (float*)mags, (float*)idxm, B, N, n_fft, hop, M, lo, hi, c_ln2, s);
+  const int T = N / hop + 1;
+  const size_t smem = sizeof(float) * 3 * (size_t)T * C;
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t err = launch_front(audio, lengths, win, tw, mel_ranges, mel_w, rtab, power, mel,
+                                 mags, idxm, B, N, n_fft, hop, F, M, lo, hi, c_ln2, 1, s);
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem = sizeof(float) * 3 * (size_t)T * C;
   err = cudaFuncSetAttribute(spectromel_stats, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -395,23 +405,17 @@ extern "C" int spectromel_launch(const void* audio, const void* lengths, const v
   return (int)cudaGetLastError();
 }
 
-// Mel-output mode (launches 1, 2, 3 and 5), n_fft == 2 * hop or 4 * hop.
-extern "C" int spectromel_mel_launch(const void* audio, const void* lengths, const void* tab,
-                                     const void* pre, const void* pim, const void* melT,
-                                     const void* rtab, void* Z, void* power, void* mel,
-                                     void* mags, void* idxm, void* tb, int B, int N, int n_fft,
-                                     int hop, int M, int lo, int hi, float c_ln2, void* stream) {
-  if ((n_fft != 2 * hop && n_fft != 4 * hop) || bad_geometry(N, n_fft, hop, lo, hi))
-    return (int)cudaErrorInvalidValue;
-  const int T = N / hop + 1;
+// Mel-output mode: launches 1 and 3.
+extern "C" int spectromel_mel_launch(const void* audio, const void* lengths, const void* win,
+                                     const void* tw, const void* mel_ranges, const void* mel_w,
+                                     const void* rtab, void* power, void* mel, void* mags,
+                                     void* idxm, void* tb, int B, int N, int n_fft, int hop, int F,
+                                     int M, int lo, int hi, float c_ln2, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  decltype(&launch_front<4>) front = &launch_front<4>;
-  if (n_fft == 2 * hop) front = &launch_front<2>;
-  cudaError_t err = front((const float*)audio, (const int*)lengths, (const float*)tab,
-                          (const float*)pre, (const float*)pim, (const float*)melT,
-                          (const float*)rtab, (float*)Z, (float*)power, (float*)mel,
-                          (float*)mags, (float*)idxm, B, N, n_fft, hop, M, lo, hi, c_ln2, s);
+  cudaError_t err = launch_front(audio, lengths, win, tw, mel_ranges, mel_w, rtab, power, mel,
+                                 mags, idxm, B, N, n_fft, hop, F, M, lo, hi, c_ln2, 0, s);
   if (err != cudaSuccess) return (int)err;
+  const int T = N / hop + 1;  // launch_front checked hop
   tuning_tail<<<B, 512, 0, s>>>((const float*)mags, (const float*)idxm, T * (hi - lo), (int*)tb);
   return (int)cudaGetLastError();
 }

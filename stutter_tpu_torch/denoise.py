@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from stutter_tpu.config import DenoiseConfig
+from stutter_tpu_torch.config import DenoiseConfig
 from stutter_tpu_torch.ops.consts import F32_TINY
 from stutter_tpu_torch.ops.frontend import DEFAULT_BUCKETS, pad_to_bucket
 from stutter_tpu_torch.ops.spectral_gate import spectral_gate

@@ -21,7 +21,7 @@ import os
 import numpy as np
 import torch
 
-from stutter_tpu.config import PipelineConfig
+from stutter_tpu_torch.config import PipelineConfig
 from stutter_tpu_torch.denoise import denoise_batch
 from stutter_tpu_torch.models.mlp import SeedMLP
 from stutter_tpu_torch.models.scaler import LabelEncoder, StandardScaler
@@ -125,7 +125,7 @@ class Predictor:
     def predict_file(self, path: str, denoise: bool | None = None, decoder=None) -> dict:
         """Classify one file, resampled to the front end's rate; `decoder`
         (path, sr -> float32 PCM) reads formats the built-in readers do not
-        (stutter_tpu.io.decode)."""
+        (stutter_tpu_torch.io.decode)."""
         from stutter_tpu_torch.io.decode import decode_audio
 
         sr = self.cfg.features.frontend.sample_rate

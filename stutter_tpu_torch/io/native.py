@@ -1,26 +1,80 @@
 """Batched corpus loading with prefetch (counterpart of stutter_tpu/io/native.py).
 
 `load_wav_batch` decodes a batch of files into a padded [B, n_max] buffer
-with the JAX package's multithreaded C++ WAV loader
-(stutter_tpu/native/stutter_io.cpp, built with g++ at first use by
-`stutter_tpu.io.native._build_and_load`).  Rows it rejects (other rates,
-other formats) go through the port's `decode_audio`, so off-rate WAVs are
-resampled by the port and hooks registered for other formats apply.  The
-JAX package's own fallback is not used: it imports JAX's resampler.
-`BatchPrefetcher` decodes one batch ahead on a background thread.
+with the port's multithreaded C++ WAV loader (native/stutter_io.cpp, built
+with g++ at first use into stutter_tpu_torch/_build/, keyed by a hash of
+the source).  Rows it rejects (other rates, other formats) go through the
+port's `read_audio` and resampler, so off-rate WAVs are resampled on the
+device and hooks registered for other formats apply.  `BatchPrefetcher`
+decodes one batch ahead on a background thread.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import logging
+import os
 import queue
+import subprocess
+import tempfile
 import threading
+from functools import lru_cache
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from stutter_tpu.io.native import _build_and_load
 from stutter_tpu_torch.io.decode import read_audio, to_rate
+
+_SRC = Path(__file__).resolve().parent.parent / "native" / "stutter_io.cpp"
+_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+_GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
+
+log = logging.getLogger("stutter_tpu_torch.io.native")
+
+
+def library_path() -> Path:
+    """Where the loader builds to: its name plus a hash of source and flags."""
+    h = hashlib.sha256(" ".join(_GXX_FLAGS).encode() + _SRC.read_bytes())
+    return _BUILD_DIR / f"libstutter_io-{h.hexdigest()[:16]}.so"
+
+
+@lru_cache(maxsize=None)
+def _build_and_load() -> ctypes.CDLL | None:
+    """The C++ loader, built with g++ on first use; None (and every row
+    through the Python reader) where no compiler is available."""
+    so = library_path()
+    try:
+        if not so.exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+            os.close(fd)
+            try:
+                subprocess.run(["g++", *_GXX_FLAGS, str(_SRC), "-o", tmp],
+                               check=True, capture_output=True)
+                os.replace(tmp, so)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+        lib = ctypes.CDLL(str(so))
+    except (OSError, subprocess.CalledProcessError) as e:
+        log.warning("C++ WAV loader unavailable (%s); decoding in Python", e)
+        return None
+    lib.st_abi_version.restype = ctypes.c_int
+    if lib.st_abi_version() != 1:
+        raise RuntimeError(f"{so}: unexpected ABI version {lib.st_abi_version()}")
+    lib.st_load_wav_batch.restype = ctypes.c_int
+    lib.st_load_wav_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p),
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float),
+        ctypes.c_longlong,
+        ctypes.POINTER(ctypes.c_int),
+        ctypes.c_int,
+        ctypes.c_int,
+    ]
+    return lib
 
 
 def load_wav_batch(

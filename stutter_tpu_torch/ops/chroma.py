@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from stutter_tpu.ops import filterbanks as fb
+from stutter_tpu_torch.ops import filterbanks as fb
 from stutter_tpu_torch.ops.consts import (
     F32_TINY,
     PIP_FMAX,

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from stutter_tpu.ops import filterbanks as fb
+from stutter_tpu_torch.ops import filterbanks as fb
 from stutter_tpu_torch.ops.masked import masked_max
 
 

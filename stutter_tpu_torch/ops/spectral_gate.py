@@ -6,7 +6,10 @@ chunks [B, C, hop] of the padded signal -> the gate's overlap-added output
 gate is noisereduce's SpectralGateNonStationary: STFT, bidirectional
 first-order IIR smoothing of |STFT|, sigmoid threshold mask, separable
 triangular mask smoothing, prop_decrease blend, iSTFT.  A CUDA tensor
-launches csrc/spectral_gate.cu; a CPU tensor runs the plain version.
+launches csrc/spectral_gate.cu (three launches: per-frame FFT analysis ->
+|Y|; IIR + sigmoid mask per bin tile; smoothing, recomputed FFT, inverse FFT
+and overlap-add per tile of output rows), for n_fft = 4 hop in 512, 1024,
+2048; a CPU tensor runs the plain version.
 """
 
 from __future__ import annotations
@@ -16,16 +19,19 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from stutter_tpu.config import DenoiseConfig
 from stutter_tpu_torch import _build
+from stutter_tpu_torch.config import DenoiseConfig
+from stutter_tpu_torch.ops import filterbanks as fb
 from stutter_tpu_torch.ops.consts import (
     F32_TINY,
-    chunk_dft_mats,
-    chunk_phase_tables,
-    idft_mats,
+    FFT_SIZES,
+    frame_tile,
+    iir_bin_tile,
     iir_coefficient,
     mask_smoothing_profiles,
     ola_winv,
+    rfft_twiddles,
+    synth_row_tile,
     window_sumsquare,
 )
 from stutter_tpu_torch.ops.spectral import hann
@@ -108,13 +114,12 @@ def spectral_gate_plain(
 
 
 @lru_cache(maxsize=None)
-def _device_tables(device: str, n_fft: int, hop: int, cfg: DenoiseConfig) -> tuple:
-    cos_c, sin_c = chunk_dft_mats(n_fft, hop)
-    p_re, p_im = chunk_phase_tables(n_fft, hop)
+def _device_tables(device: str, n_fft: int, cfg: DenoiseConfig) -> tuple:
+    """Hann window, FFT twiddles and the smoothing taps, uploaded once per
+    device and geometry."""
     profiles = mask_smoothing_profiles(cfg)
     f_taps, t_taps = profiles if profiles is not None else (np.ones(1), np.ones(1))
-    cr, ci = idft_mats(n_fft)
-    host = (np.concatenate([cos_c, sin_c], axis=1), p_re, p_im, f_taps, t_taps, cr, ci)
+    host = (fb.hann(n_fft), rfft_twiddles(n_fft), f_taps, t_taps)
     return tuple(torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
                  for a in host)
 
@@ -127,21 +132,24 @@ def _device_winv(device: str, t_frames: int, n_fft: int, hop: int) -> torch.Tens
 def _spectral_gate_cuda(chunks, n_fft, hop, cfg):
     B, C, h = chunks.shape
     ratio = n_fft // hop
-    if h != hop or n_fft != 4 * hop or hop % 8 or C < ratio or chunks.dtype != torch.float32:
+    if h != hop or n_fft != 4 * hop or n_fft not in FFT_SIZES or C < ratio \
+            or chunks.dtype != torch.float32:
         raise ValueError(f"spectral_gate kernel needs float32 [B, C, hop] chunks with "
-                         f"n_fft == 4*hop and 8 | hop; got {tuple(chunks.shape)}, n_fft={n_fft}")
+                         f"n_fft == 4*hop, n_fft in {FFT_SIZES}; got {tuple(chunks.shape)}, "
+                         f"n_fft={n_fft}")
     chunks = chunks.contiguous()
     T, K = C - ratio + 1, n_fft // 2 + 1
     dev = chunks.device
-    tables = _device_tables(str(dev), n_fft, hop, cfg)
+    win, tw, f_taps, t_taps = _device_tables(str(dev), n_fft, cfg)
     winv = _device_winv(str(dev), T, n_fft, hop)
-    z = torch.empty(B * C, 2 * K, device=dev)  # chunk DFTs, scratch
-    yr, yi, mag, mk = (torch.empty(B, T, K, device=dev) for _ in range(4))
+    mag, mk = (torch.empty(B, T, K, device=dev) for _ in range(2))  # |Y| and the mask, scratch
     out = torch.empty(B, T + ratio - 1, hop, device=dev)
     b = iir_coefficient(cfg)
-    fn = _build.bind("spectral_gate", "spectral_gate_launch", 15, 6, 5)
-    ptrs = [t.data_ptr() for t in (chunks, *tables, winv, z, yr, yi, mag, mk, out)]
-    rc = fn(*ptrs, B, C, n_fft, hop, tables[3].numel(), tables[4].numel(),
+    tiles = (frame_tile(n_fft, T, B), iir_bin_tile(T, K, B),
+             synth_row_tile(T + ratio - 1, B, n_fft, hop, f_taps.numel()))
+    fn = _build.bind("spectral_gate", "spectral_gate_launch", 9, 9, 5)
+    ptrs = [t.data_ptr() for t in (chunks, win, tw, f_taps, t_taps, winv, mag, mk, out)]
+    rc = fn(*ptrs, B, C, n_fft, hop, f_taps.numel(), t_taps.numel(), *tiles,
             b, 1.0 - b, cfg.thresh_n_mult_nonstationary, cfg.sigmoid_slope_nonstationary,
             cfg.prop_decrease, _build.stream_of(chunks))
     _build.check(rc, "spectral_gate_launch")

@@ -10,11 +10,12 @@ of the 286-dim variant) the linear mel spectrum [B, T, n_mels], and the
 librosa tuning bin [B].
 
 `spectromel` dispatches on where the audio lies: a CPU tensor runs
-`spectromel_plain`; a CUDA tensor launches csrc/spectromel.cu (chunk-DFT
-GEMM; power + piptrack candidates per frame tile; mel GEMM; in stats mode
-dB/DCT/SavGol/stats per clip; the tuning bin per clip, as
-`ops.chroma.tuning_bin_from_candidates` computes it).  Stats mode needs
-n_fft == 4 * hop; the mel-output mode takes n_fft == 2 * hop or 4 * hop.
+`spectromel_plain`; a CUDA tensor launches csrc/spectromel.cu (per frame
+tile: the shared-memory FFT, power, mel over each band's nonzero bins and
+the piptrack candidates; in stats mode dB/DCT/SavGol/stats per clip; the
+tuning bin per clip, as `ops.chroma.tuning_bin_from_candidates` computes
+it).  The kernel takes n_fft in 512, 1024, 2048 and any hop >= 2 that
+divides n_fft and the bucket, in both modes.
 """
 
 from __future__ import annotations
@@ -25,16 +26,18 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from stutter_tpu.ops import filterbanks as fb
+from stutter_tpu_torch.ops import filterbanks as fb
 from stutter_tpu_torch import _build
 from stutter_tpu_torch.ops.chroma import estimate_tuning_bin
 from stutter_tpu_torch.ops.consts import (
+    FFT_SIZES,
     PIP_FMAX,
     PIP_FMIN,
     band_range,
-    chunk_dft_mats,
-    chunk_phase_tables,
+    frame_tile,
+    mel_sparse,
     residual_table,
+    rfft_twiddles,
     savgol_taps,
 )
 from stutter_tpu_torch.ops.delta import sg_deltas
@@ -76,39 +79,37 @@ def spectromel_plain(
 
 
 @lru_cache(maxsize=None)
-def _device_tables(device: str, sr: int, n_fft: int, hop: int, n_mels: int, n_mfcc: int,
+def _device_tables(device: str, sr: int, n_fft: int, n_mels: int, n_mfcc: int,
                    n_chroma: int) -> tuple[torch.Tensor, ...]:
-    """The kernel's constant tables, uploaded once per device and geometry."""
-    K = n_fft // 2 + 1
-    cos_c, sin_c = chunk_dft_mats(n_fft, hop)
-    p_re, p_im = chunk_phase_tables(n_fft, hop)
-    mel_t = np.asarray(fb.mel_fb(sr, n_fft, n_mels), np.float32).T  # [K, M]
+    """The kernel's constant tables, uploaded once per device and geometry:
+    Hann window, FFT twiddles, sparse mel ranges (int32) and weights, the
+    pitch residual table, the DCT and the SavGol taps."""
+    ranges, weights = mel_sparse(sr, n_fft, n_mels)
     dct_t = fb.dct_mat(n_mfcc, n_mels).T  # [M, n_mfcc]
-    host = (np.concatenate([cos_c, sin_c], axis=1), p_re, p_im, mel_t,
-            residual_table(sr, n_fft, K, n_chroma), dct_t, savgol_taps())
-    return tuple(torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
-                 for a in host)
+    host = (fb.hann(n_fft), rfft_twiddles(n_fft), ranges, weights,
+            residual_table(sr, n_fft, n_fft // 2 + 1, n_chroma), dct_t, savgol_taps())
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device) for a in host)
 
 
 def _spectromel_cuda(audio, lengths, sr, n_fft, hop, n_mels, n_mfcc, n_chroma, with_stats):
     B, N = audio.shape
-    # stats mode: n_fft / hop == 4; mel-output mode: 2 or 4; both need 8 | hop
-    # (the GEMM's k tile) and hop | N
-    ratios = (4,) if with_stats else (2, 4)
-    if n_fft not in [r * hop for r in ratios] or hop % 8 or N % hop:
-        raise ValueError(f"spectromel kernel ({'stats' if with_stats else 'mel-output'} mode) "
-                         f"needs n_fft / hop in {ratios}, 8 | hop, hop | N; "
-                         f"got n_fft={n_fft} hop={hop} N={N}")
+    # the plain version's framing needs hop | N and hop | n_fft; the kernel
+    # stages frames 8-byte aligned, so hop >= 2
+    if n_fft not in FFT_SIZES or hop < 2 or N % hop or n_fft % hop:
+        raise ValueError(f"spectromel kernel needs n_fft in {FFT_SIZES}, hop | N, hop | n_fft "
+                         f"and hop >= 2; got n_fft={n_fft} hop={hop} N={N}")
+    T, K = N // hop + 1, n_fft // 2 + 1
+    if with_stats and 12 * T * n_mfcc > 232448:
+        raise ValueError(f"spectromel stats mode: {T} frames x {n_mfcc} MFCC exceed a block's "
+                         f"shared memory")
     if audio.dtype != torch.float32 or lengths.device != audio.device:
         raise ValueError("spectromel kernel takes float32 audio and lengths on its device")
     audio = audio.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
-    T, K = N // hop + 1, n_fft // 2 + 1
     lo, hi = band_range(sr, n_fft, PIP_FMIN, PIP_FMAX)
-    tab, pre, pim, mel_t, rtab, dct_t, sg = _device_tables(
-        str(audio.device), sr, n_fft, hop, n_mels, n_mfcc, n_chroma)
+    win, tw, ranges, weights, rtab, dct_t, sg = _device_tables(
+        str(audio.device), sr, n_fft, n_mels, n_mfcc, n_chroma)
     dev = audio.device
-    z = torch.empty(B * (T + n_fft // hop - 1), 2 * K, device=dev)  # chunk DFTs, scratch
     power = torch.empty(B, T, K, device=dev)
     mel = torch.empty(B, T, n_mels, device=dev)
     mags = torch.empty(B, T, hi - lo, device=dev)
@@ -117,20 +118,21 @@ def _spectromel_cuda(audio, lengths, sr, n_fft, hop, n_mels, n_mfcc, n_chroma, w
     # the series factor is rounded to f32 exactly as the plain version's
     # Python-float scalar is
     c_ln2 = n_chroma / math.log(2.0)
+    tile = frame_tile(n_fft, T, B)
     stream = _build.stream_of(audio)
     if not with_stats:
-        fn = _build.bind("spectromel", "spectromel_mel_launch", 13, 7, 1)
-        ptrs = [t.data_ptr() for t in (audio, lengths, tab, pre, pim, mel_t, rtab, z, power,
+        fn = _build.bind("spectromel", "spectromel_mel_launch", 12, 8, 1)
+        ptrs = [t.data_ptr() for t in (audio, lengths, win, tw, ranges, weights, rtab, power,
                                        mel, mags, idxm, tb)]
-        rc = fn(*ptrs, B, N, n_fft, hop, n_mels, lo, hi, c_ln2, stream)
+        rc = fn(*ptrs, B, N, n_fft, hop, tile, n_mels, lo, hi, c_ln2, stream)
         _build.check(rc, "spectromel_mel_launch")
         spectromel.mel_launches += 1
         return power, mel, tb
     stats = torch.empty(B, 6, n_mfcc, device=dev)
-    fn = _build.bind("spectromel", "spectromel_launch", 16, 8, 1)
-    ptrs = [t.data_ptr() for t in (audio, lengths, tab, pre, pim, mel_t, rtab, dct_t, sg, z,
+    fn = _build.bind("spectromel", "spectromel_launch", 15, 9, 1)
+    ptrs = [t.data_ptr() for t in (audio, lengths, win, tw, ranges, weights, rtab, dct_t, sg,
                                    power, mel, mags, idxm, stats, tb)]
-    rc = fn(*ptrs, B, N, n_fft, hop, n_mels, n_mfcc, lo, hi, c_ln2, stream)
+    rc = fn(*ptrs, B, N, n_fft, hop, tile, n_mels, n_mfcc, lo, hi, c_ln2, stream)
     _build.check(rc, "spectromel_launch")
     spectromel.launches += 1
     return power, stats, tb

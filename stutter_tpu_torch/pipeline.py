@@ -9,9 +9,10 @@
 Both run on an explicit device: the gate and spectromel kernels for
 `cuda`, their plain versions for `cpu`.  They write what the JAX package
 writes -- the same clear_audio/ files, the same cache_features/ names
-(stutter_tpu.cache.FeatureCache, with the `_d286` namespace of the 286-dim
-variant) and the same per_file_analysis.csv columns -- so either package
-reads the other's workspace.
+(`cache.FeatureCache`, the port's copy of the JAX package's, with the
+`_d286` namespace of the 286-dim variant) and the same
+per_file_analysis.csv columns -- so either package reads the other's
+workspace.
 
 Unlike the JAX package, a device or kernel error is never caught: an
 undecodable file degrades its own row, and a malformed clip is left raw by
@@ -28,16 +29,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from stutter_tpu import evals
-from stutter_tpu.cache import FeatureCache
-from stutter_tpu.config import DenoiseConfig, PipelineConfig
-from stutter_tpu.data import label_of, list_audio_files
-from stutter_tpu.io.wav import load_mono, write_wav
-from stutter_tpu.utils.profiling import StageTimer
+from stutter_tpu_torch.cache import FeatureCache
+from stutter_tpu_torch.config import DenoiseConfig, PipelineConfig
+from stutter_tpu_torch.data import label_of, list_audio_files
 from stutter_tpu_torch.denoise import denoise_clips
+from stutter_tpu_torch.evals import write_csv
 from stutter_tpu_torch.infer import resolve_device
 from stutter_tpu_torch.io.decode import read_audio, to_rate
+from stutter_tpu_torch.io.wav import load_mono, write_wav
 from stutter_tpu_torch.ops.frontend import DEFAULT_BUCKETS, batch_extractor_for, run_bucketed
+from stutter_tpu_torch.utils.profiling import StageTimer
 
 log = logging.getLogger("stutter_tpu_torch.pipeline")
 
@@ -169,7 +170,7 @@ def preprocess(
         })
     log.info("preprocessed %d files, skipped %d", len(rows), skipped)
     timer.log_report()
-    evals._write_csv(
+    write_csv(
         os.path.join(out_dir, "per_file_analysis.csv"),
         list(rows[0].keys()) if rows else ["file"],
         [list(r.values()) for r in rows],

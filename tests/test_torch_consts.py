@@ -1,11 +1,13 @@
 """The port's NumPy constant tables equal the JAX package's originals (bf16
-hi/lo splits recombined where the TPU kernels split them)."""
+hi/lo splits recombined where the TPU kernels split them).  The FFT kernels'
+own tables (twiddles, sparse mel ranges) are held in tests/test_torch_fft.py."""
 
 import numpy as np
 import pytest
 import torch
 
-from stutter_tpu.config import DenoiseConfig
+from stutter_tpu import config as jconfig
+from stutter_tpu_torch.config import DenoiseConfig
 from stutter_tpu_torch.ops import consts
 
 torch.set_num_threads(2)
@@ -15,45 +17,33 @@ def _recombined(hi, lo):
     return np.asarray(hi, np.float32) + np.asarray(lo, np.float32)
 
 
-@pytest.mark.parametrize("n_fft,hop", [(2048, 512), (1024, 256), (512, 256)])
-def test_chunk_tables_equal_jax(n_fft, hop):
-    from stutter_tpu.ops.spectral import _chunk_dft_mats, _chunk_phase_tables
-
-    for ours, theirs in zip(consts.chunk_dft_mats(n_fft, hop), _chunk_dft_mats(n_fft, hop)):
-        np.testing.assert_array_equal(ours, theirs)
-    for ours, theirs in zip(consts.chunk_phase_tables(n_fft, hop),
-                            _chunk_phase_tables(n_fft, hop)):
-        np.testing.assert_array_equal(ours, theirs)
-
-
-def test_chunk_tables_match_kernel_splits():
-    from stutter_tpu.ops.pallas_spectromel import _chunk_dft_mats_bf16
-
-    cos_hi, cos_lo, sin_hi, sin_lo = _chunk_dft_mats_bf16(2048, 512)
-    cos_c, sin_c = consts.chunk_dft_mats(2048, 512)
-    np.testing.assert_allclose(_recombined(cos_hi, cos_lo), cos_c, rtol=0, atol=2e-5)
-    np.testing.assert_allclose(_recombined(sin_hi, sin_lo), sin_c, rtol=0, atol=2e-5)
-
-
 @pytest.mark.parametrize("prop", [1.0, 0.8])
 def test_denoise_tables_equal_jax(prop):
     from stutter_tpu.denoise import _mask_smoothing_profiles, _window_sumsquare
 
-    cfg = DenoiseConfig(prop_decrease=prop)
-    for ours, theirs in zip(consts.mask_smoothing_profiles(cfg), _mask_smoothing_profiles(cfg)):
+    cfg, jcfg = DenoiseConfig(prop_decrease=prop), jconfig.DenoiseConfig(prop_decrease=prop)
+    assert consts.iir_coefficient(cfg) == consts.iir_coefficient(jcfg)
+    for ours, theirs in zip(consts.mask_smoothing_profiles(cfg), _mask_smoothing_profiles(jcfg)):
         np.testing.assert_array_equal(ours, theirs)
     np.testing.assert_array_equal(consts.window_sumsquare(428, 1024, 256),
                                   _window_sumsquare(428, 1024, 256))
 
 
 def test_gate_kernel_tables_equal_jax():
+    """The gate kernel's synthesis (inverse real FFT times the port's Hann:
+    1/N and the one-sided weights come with irfft) is the JAX kernel's IDFT
+    table row for row, and its winv table is the JAX kernel's."""
     from stutter_tpu.ops.pallas_denoise import _gate_idft_consts, _gate_winv
+    from stutter_tpu_torch.ops import filterbanks as fb
 
     cr_hi, cr_lo, ci_hi, ci_lo = _gate_idft_consts(1024)
-    cr, ci = consts.idft_mats(1024)
+    eye = np.eye(513)
+    hann = np.asarray(fb.hann(1024), np.float64)
     # the split keeps ~16 mantissa bits; entries are O(2/N)
-    np.testing.assert_allclose(_recombined(cr_hi, cr_lo), cr, rtol=0, atol=1e-8)
-    np.testing.assert_allclose(_recombined(ci_hi, ci_lo), ci, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(_recombined(cr_hi, cr_lo), np.fft.irfft(eye, n=1024) * hann,
+                               rtol=0, atol=1e-8)
+    np.testing.assert_allclose(_recombined(ci_hi, ci_lo), np.fft.irfft(1j * eye, n=1024) * hann,
+                               rtol=0, atol=1e-8)
     for t_frames in (252, 428, 876):
         np.testing.assert_array_equal(consts.ola_winv(t_frames, 1024, 256),
                                       _gate_winv(t_frames, 1024, 256))

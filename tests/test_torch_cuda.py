@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
-small shapes with edge cases (silent, short and odd-batch clips).  Marked
+small shapes with edge cases (silent, short, ragged and odd-batch clips, a
+single clip: the request shape).  Marked
 `gpu`: they skip without a CUDA device.  On a GPU machine without JAX run
 
     python -m pytest tests/test_torch_cuda.py -m gpu --noconftest -q
@@ -9,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from stutter_tpu.config import DenoiseConfig
+from stutter_tpu_torch.config import DenoiseConfig
 
 pytestmark = pytest.mark.gpu
 
@@ -36,13 +37,16 @@ def _clips(seed, B, N):
 @pytest.mark.parametrize("N,lengths", [
     (24576, [24576, 20000, 4000, 3000, 9000]),  # incl. clips under 9 frames
     (163840, [163840, 150000, 60000]),  # the 10 s bucket
+    (49152, [48000]),  # one 3 s request
+    (49152, [49152, 47999, 30001, 17, 0]),  # ragged: not a multiple of hop, empty
 ])
 def test_spectromel_and_chroma_kernels_match_plain(cuda, N, lengths):
     from stutter_tpu_torch.ops.chroma import estimate_tuning_bin
     from stutter_tpu_torch.ops.chroma_stats import chroma_stats, chroma_stats_plain
     from stutter_tpu_torch.ops.spectromel import spectromel, spectromel_plain
 
-    audio = torch.from_numpy(_clips(1, len(lengths), N)).to(cuda)
+    # one clip: the first of two (the last of _clips is silent)
+    audio = torch.from_numpy(_clips(1, max(len(lengths), 2), N)[:len(lengths)]).to(cuda)
     le = torch.tensor(lengths, dtype=torch.int32, device=cuda)
     for b, n in enumerate(lengths):
         audio[b, n:] = 0
@@ -54,7 +58,8 @@ def test_spectromel_and_chroma_kernels_match_plain(cuda, N, lengths):
     err = (st - stp).abs()
     assert float(err.max()) < 2e-3 and float(err.mean()) < 2e-4
     assert torch.equal(tb, estimate_tuning_bin(p, 16000, 2048))
-    assert int(tb[-1]) == 50
+    if len(lengths) > 1:
+        assert int(tb[-1]) == 50  # the silent clip
 
     nv = 1 + le // 512
     tbs = torch.tensor([0, 99, 50, 7, 42][: len(lengths)], dtype=torch.int32, device=cuda)
@@ -65,6 +70,8 @@ def test_spectromel_and_chroma_kernels_match_plain(cuda, N, lengths):
 @pytest.mark.parametrize("N,lengths", [
     (24576, [24576, 20000, 4000, 2000, 9000]),  # incl. clips under 9 frames
     (163840, [163840, 150000, 60000]),  # the 10 s bucket: 641 frames
+    (49152, [49152]),  # one 3 s request
+    (49152, [48000, 33333, 255, 1, 40000]),  # ragged
 ])
 def test_spectromel_mel_mode_matches_plain(cuda, N, lengths):
     """The mel-output mode at the 286-dim variant's geometry (n_fft 512, hop
@@ -74,7 +81,8 @@ def test_spectromel_mel_mode_matches_plain(cuda, N, lengths):
     from stutter_tpu_torch.ops.chroma import estimate_tuning_bin
     from stutter_tpu_torch.ops.spectromel import spectromel, spectromel_plain
 
-    audio = torch.from_numpy(_clips(3, len(lengths), N)).to(cuda)
+    # one clip: the first of two (the last of _clips is silent)
+    audio = torch.from_numpy(_clips(3, max(len(lengths), 2), N)[:len(lengths)]).to(cuda)
     le = torch.tensor(lengths, dtype=torch.int32, device=cuda)
     for b, n in enumerate(lengths):
         audio[b, n:] = 0
@@ -87,7 +95,8 @@ def test_spectromel_mel_mode_matches_plain(cuda, N, lengths):
     assert float((p - pp).abs().max() / pp.abs().max()) < 1e-5
     assert float((m - mp).abs().max() / mp.abs().max()) < 1e-4
     assert torch.equal(tb, estimate_tuning_bin(p, 16000, 512))
-    assert int(tb[-1]) == 50
+    if len(lengths) > 1:
+        assert int(tb[-1]) == 50  # the silent clip
     n_valid = 1 + le // 256
     for b in range(len(lengths)):  # frames past the clip's end are exactly zero
         assert not p[b, n_valid[b]:].any() and not m[b, n_valid[b]:].any()
@@ -96,29 +105,110 @@ def test_spectromel_mel_mode_matches_plain(cuda, N, lengths):
 @pytest.mark.parametrize("prop", [1.0, 0.8])
 def test_gate_kernel_matches_plain(cuda, prop):
     from stutter_tpu_torch.denoise import denoise_batch
-    from stutter_tpu_torch.ops.spectral_gate import spectral_gate_plain
+    from stutter_tpu_torch.ops.spectral_gate import spectral_gate, spectral_gate_plain
 
     cfg = DenoiseConfig(prop_decrease=prop)
     audio = torch.from_numpy(_clips(2, 3, 4096)).to(cuda)
     le = torch.tensor([4096, 3000, 4096], dtype=torch.int32, device=cuda)
+    before = spectral_gate.launches
     got = denoise_batch(audio, le, cfg)
+    assert spectral_gate.launches == before + 1
     ref = denoise_batch(audio, le, cfg, gate=spectral_gate_plain)
     assert float((got - ref).abs().max()) < 5e-5
     assert float(got[1, 3000:].abs().max()) == 0.0
     assert float(got[2].abs().max()) == 0.0  # silent in, silent out
 
 
+@pytest.mark.parametrize("B,N,lengths", [
+    (1, 49152, [48000]),  # one 3 s request: the smallest tiles
+    (3, 163840, [163840, 99999, 7]),  # ragged, at the 10 s bucket (879 chunks)
+])
+def test_gate_kernel_matches_plain_at_request_and_bucket_shapes(cuda, B, N, lengths):
+    """Within the serving bound (0.03, correlation > 0.9999) and, on the
+    gate's own output before the crop, 5e-5 relative to its peak on the
+    rows where four frames overlap (the first and last three rows divide by
+    a window-sum-square near 0, which denoise_batch crops away)."""
+    from stutter_tpu_torch.denoise import denoise_batch
+    from stutter_tpu_torch.ops.spectral_gate import spectral_gate, spectral_gate_plain
+
+    cfg = DenoiseConfig(prop_decrease=0.8)
+    audio = torch.from_numpy(_clips(4, B + 1, N)[:B]).to(cuda)
+    le = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    for b, n in enumerate(lengths):
+        audio[b, n:] = 0
+    got = denoise_batch(audio, le, cfg)
+    ref = denoise_batch(audio, le, cfg, gate=spectral_gate_plain)
+    assert float((got - ref).abs().max()) < 0.03
+    g, r = got - got.mean(1, keepdim=True), ref - ref.mean(1, keepdim=True)
+    corr = (g * r).sum(1) / (g.norm(dim=1) * r.norm(dim=1) + 1e-12)
+    assert float(corr[:2].min()) > 0.9999
+    chunks = torch.nn.functional.pad(audio, (512, 512 + (-N) % 256)).reshape(B, -1, 256)
+    k, p = spectral_gate(chunks, 1024, 256, cfg), spectral_gate_plain(chunks, 1024, 256, cfg)
+    assert float((k - p)[:, 3:-3].abs().max() / p.abs().max()) < 5e-5
+
+
+@pytest.mark.parametrize("n_fft,hop", [(1024, 128), (512, 64), (2048, 256)])
+def test_spectromel_kernel_at_other_fft_sizes_and_ratios(cuda, n_fft, hop):
+    """Both modes at the FFT sizes and n_fft / hop ratios the front ends do
+    not use, within the same bounds."""
+    from stutter_tpu_torch.ops.chroma import estimate_tuning_bin
+    from stutter_tpu_torch.ops.spectromel import spectromel, spectromel_plain
+
+    lengths = [24576, 17001, 5000]
+    audio = torch.from_numpy(_clips(5, 4, 24576)[:3]).to(cuda)
+    le = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    for b, n in enumerate(lengths):
+        audio[b, n:] = 0
+    kw = dict(n_fft=n_fft, hop_length=hop, n_mfcc=13)
+    p, st, tb = spectromel(audio, le, **kw)
+    pp, stp, _ = spectromel_plain(audio, le, **kw)
+    assert float((p - pp).abs().max() / pp.abs().max()) < 1e-5
+    err = (st - stp).abs()
+    assert float(err.max()) < 2e-3 and float(err.mean()) < 2e-4
+    assert torch.equal(tb, estimate_tuning_bin(p, 16000, n_fft))
+    p, m, tb = spectromel(audio, le, with_stats=False, **kw)
+    pp, mp, _ = spectromel_plain(audio, le, with_stats=False, **kw)
+    assert float((m - mp).abs().max() / mp.abs().max()) < 1e-4
+    assert torch.equal(tb, estimate_tuning_bin(p, 16000, n_fft))
+
+
+@pytest.mark.parametrize("n_fft", [512, 2048])
+def test_gate_kernel_at_other_fft_sizes(cuda, n_fft):
+    """The gate at n_fft 512 and 2048 (hop n_fft / 4) against its plain
+    version, at the test shapes' bound."""
+    from stutter_tpu_torch.denoise import denoise_batch
+    from stutter_tpu_torch.ops.spectral_gate import spectral_gate_plain
+
+    cfg = DenoiseConfig(n_fft=n_fft, hop_length=n_fft // 4, win_length=n_fft)
+    audio = torch.from_numpy(_clips(6, 3, 8192)).to(cuda)
+    le = torch.tensor([8192, 6000, 8192], dtype=torch.int32, device=cuda)
+    got = denoise_batch(audio, le, cfg)
+    ref = denoise_batch(audio, le, cfg, gate=spectral_gate_plain)
+    assert float((got - ref).abs().max()) < 5e-5
+    assert float(got[1, 6000:].abs().max()) == 0.0 and float(got[2].abs().max()) == 0.0
+
+
 def test_wrappers_reject_unsupported_geometry(cuda):
+    """The FFT kernels take n_fft 512, 1024 or 2048; spectromel any hop that
+    divides the bucket, the gate n_fft == 4 hop only."""
     from stutter_tpu_torch.ops.spectral_gate import spectral_gate
     from stutter_tpu_torch.ops.spectromel import spectromel
 
     audio = torch.zeros(1, 24576, device=cuda)
     ones = torch.ones(1, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):  # ratio 3: neither mode
+    with pytest.raises(ValueError):  # not a power of two
         spectromel(audio, ones, n_fft=768, hop_length=256)
     with pytest.raises(ValueError):
         spectromel(audio, ones, n_fft=768, hop_length=256, with_stats=False)
-    with pytest.raises(ValueError):  # ratio 2 is the mel-output mode's only
-        spectromel(audio, ones, n_fft=512, hop_length=256)
+    with pytest.raises(ValueError):  # above the largest FFT
+        spectromel(audio, ones, n_fft=4096, hop_length=1024)
+    with pytest.raises(ValueError):  # hop does not divide N
+        spectromel(audio, ones, n_fft=2048, hop_length=500, with_stats=False)
+    with pytest.raises(ValueError):  # hop does not divide n_fft (the plain framing's rule)
+        spectromel(audio, ones, n_fft=2048, hop_length=384, with_stats=False)
+    # ratio 2 now runs in both modes
+    assert spectromel(audio, ones, n_fft=512, hop_length=256)[1].shape == (1, 6, 20)
     with pytest.raises(ValueError):
         spectral_gate(torch.zeros(1, 10, 100, device=cuda), 400, 100, DenoiseConfig())
+    with pytest.raises(ValueError):  # ratio 2
+        spectral_gate(torch.zeros(1, 10, 512, device=cuda), 1024, 512, DenoiseConfig())

@@ -10,7 +10,8 @@ import torch
 
 import jax.numpy as jnp
 
-from stutter_tpu.config import DenoiseConfig
+from stutter_tpu import config as jconfig
+from stutter_tpu_torch.config import DenoiseConfig
 
 torch.set_num_threads(2)
 
@@ -113,7 +114,8 @@ def test_gate_plain_matches_jax_gate_and_kernel(prop):
     ours = denoise_batch(torch.from_numpy(audio), torch.from_numpy(lengths), cfg).numpy()
     assert spectral_gate.launches == before
     for pallas in (False, True):
-        ref = np.asarray(j_denoise(jnp.asarray(audio), jnp.asarray(lengths), cfg,
+        ref = np.asarray(j_denoise(jnp.asarray(audio), jnp.asarray(lengths),
+                                   jconfig.DenoiseConfig(prop_decrease=prop),
                                    pallas=pallas, interpret=pallas))
         np.testing.assert_allclose(ours, ref, rtol=0, atol=5e-5)
     assert np.abs(ours[1, 3000:]).max() == 0.0  # trailing padding stays exactly 0

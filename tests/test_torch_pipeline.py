@@ -16,15 +16,21 @@ import numpy as np
 import pytest
 import torch
 
-from stutter_tpu.config import FEATURES_334, DenoiseConfig, PipelineConfig
-from stutter_tpu.io.decode import register_decoder, unregister_decoder
-from stutter_tpu.io.wav import read_wav, write_wav
+from stutter_tpu import config as jconfig
+from stutter_tpu.io import decode as jdecode
+from stutter_tpu_torch.config import FEATURES_334, DenoiseConfig, PipelineConfig
+from stutter_tpu_torch.io.decode import register_decoder, unregister_decoder
+from stutter_tpu_torch.io.wav import read_wav, write_wav
 
 torch.set_num_threads(2)
 
 SR = 16000
 CFG = PipelineConfig(denoise=DenoiseConfig(prop_decrease=0.8))  # the main.py protocol
 CFGS = {149: CFG, 286: PipelineConfig(features=FEATURES_334, denoise=CFG.denoise)}
+# the same configurations as the JAX package's own objects, field for field
+JCFG = jconfig.PipelineConfig(denoise=jconfig.DenoiseConfig(prop_decrease=0.8))
+JCFGS = {149: JCFG, 286: jconfig.PipelineConfig(features=jconfig.FEATURES_334,
+                                                 denoise=JCFG.denoise)}
 HIDDEN = (32, 16)
 CLASSES = ["a", "b", "c"]
 
@@ -76,19 +82,21 @@ def runs(tmp_path_factory):
         roots[who] = tmp_path_factory.mktemp(who)
         shutil.copytree(base / "segrigated_samples", roots[who] / "segrigated_samples")
     out = {"roots": roots}
-    register_decoder(".ogg", hooked_decoder)
+    register_decoder(".ogg", hooked_decoder)  # each package has its own registry
+    jdecode.register_decoder(".ogg", hooked_decoder)
     try:
-        out["jax_rows"] = J.preprocess(str(roots["jax"]), CFG)
+        out["jax_rows"] = J.preprocess(str(roots["jax"]), JCFG)
         out["torch_rows"] = P.preprocess(str(roots["torch"]), CFG, device="cpu")
         shutil.copytree(roots["torch"] / "clear_audio", roots["jax_clean"] / "clear_audio")
         for dim, cfg in CFGS.items():
             for sfx in ("raw", "clean"):
                 out["jax", dim, sfx] = J.extract_corpus(
-                    str(roots["jax" if sfx == "raw" else "jax_clean"]), cfg, sfx)
+                    str(roots["jax" if sfx == "raw" else "jax_clean"]), JCFGS[dim], sfx)
                 out["torch", dim, sfx] = P.extract_corpus(str(roots["torch"]), cfg, sfx,
                                                           device="cpu")
     finally:
         unregister_decoder(".ogg")
+        jdecode.unregister_decoder(".ogg")
     return out
 
 
@@ -179,11 +187,13 @@ def test_extract_corpus_reuses_cache_and_keeps_other_variant(runs):
 
 
 def test_decode_hooks(runs, tmp_path):
-    """A hook registered through stutter_tpu.io.decode.register_decoder for a
-    format no built-in reader takes is used by the port's decode_audio (and
-    was by extract_corpus and preprocess above: hooked.ogg has a row); an
-    explicit decoder reaches Predictor.predict_file; without a hook the file
-    raises in decode_audio and becomes an ok=False row."""
+    """A hook registered through the port's own registry
+    (stutter_tpu_torch.io.decode.register_decoder) for a format no built-in
+    reader takes is used by the port's decode_audio (and was by
+    extract_corpus and preprocess above: hooked.ogg has a row); one
+    registered in the JAX package's registry is not; an explicit decoder
+    reaches Predictor.predict_file; without a hook the file raises in
+    decode_audio and becomes an ok=False row."""
     from stutter_tpu_torch.io.decode import decode_audio
     from stutter_tpu_torch.io.native import load_wav_batch
     from stutter_tpu_torch.pipeline import extract_corpus
@@ -191,6 +201,12 @@ def test_decode_hooks(runs, tmp_path):
     ogg = runs["roots"]["torch"] / "segrigated_samples" / "c" / "hooked.ogg"
     with pytest.raises(ValueError, match="RIFF"):
         decode_audio(str(ogg), SR)
+    jdecode.register_decoder(".ogg", hooked_decoder)
+    try:
+        with pytest.raises(ValueError, match="RIFF"):
+            decode_audio(str(ogg), SR)
+    finally:
+        jdecode.unregister_decoder(".ogg")
     register_decoder(".ogg", hooked_decoder)
     try:
         np.testing.assert_array_equal(decode_audio(str(ogg), SR), hooked_decoder(str(ogg), SR))
@@ -241,9 +257,8 @@ def test_predict_286_variant_matches_jax(runs, artifacts):
     from stutter_tpu.infer import Predictor as JPredictor
     from stutter_tpu_torch.infer import Predictor
 
-    cfg = CFGS[286]
-    tp = Predictor.load(str(artifacts), cfg, device="cpu")
-    jp = JPredictor.load(str(artifacts), cfg)
+    tp = Predictor.load(str(artifacts), CFGS[286], device="cpu")
+    jp = JPredictor.load(str(artifacts), JCFGS[286])
     corpus = runs["roots"]["torch"] / "segrigated_samples"
     for path in (corpus / "a" / "tone_1.wav", corpus / "c" / "burst_22k.wav"):
         r, rj = tp.predict_file(str(path)), jp.predict_file(str(path))
@@ -357,8 +372,7 @@ def test_denoise_clips_matches_jax_at_main_py_protocol():
     clips = [(0.5 * np.sin(2 * np.pi * 440 * t[:n]) * (t[:n] % 0.25 < 0.125)
               + 0.05 * rng.randn(n)).astype(np.float32) for n in (9000, 30000)]
     clips.append(np.zeros(5000, np.float32))
-    cfg = CFG.denoise
-    ours, theirs = denoise_clips(clips, cfg), j_denoise_clips(clips, cfg)
+    ours, theirs = denoise_clips(clips, CFG.denoise), j_denoise_clips(clips, JCFG.denoise)
     for y, a, b in zip(clips, ours, theirs):
         assert a.shape == b.shape == y.shape
         np.testing.assert_allclose(a, b, rtol=0, atol=5e-5)

@@ -43,9 +43,9 @@ def workspace(tmp_path_factory):
     """WORK/output_results with JAX-format artifacts: a numpy-seeded MLP and a
     scaler fitted on features of seeded clips."""
     from stutter_tpu import persist
-    from stutter_tpu.config import PipelineConfig
     from stutter_tpu.models.scaler import LabelEncoder, StandardScaler
     from stutter_tpu.train.trainer import FittedMLP, MLPTrainConfig
+    from stutter_tpu_torch.config import PipelineConfig
     from stutter_tpu_torch.ops.frontend import extract_features_numpy
 
     root = tmp_path_factory.mktemp("work")
@@ -88,25 +88,26 @@ def test_from_jax_params_matches_jax_forward():
 def test_slice_matches_jax_predictor(workspace):
     """Features (MFCC block 2e-3, chroma block 1e-5), probabilities (1e-4)
     and labels of the port's Predictor on the CPU == the JAX Predictor."""
-    from stutter_tpu.config import PipelineConfig
+    from stutter_tpu import config as jconfig
     from stutter_tpu.denoise import denoise_clips as j_denoise
     from stutter_tpu.infer import Predictor as JPredictor
     from stutter_tpu.ops.frontend import extract_features_numpy as j_extract
+    from stutter_tpu_torch.config import PipelineConfig
     from stutter_tpu_torch.denoise import denoise_clips
     from stutter_tpu_torch.infer import Predictor
     from stutter_tpu_torch.ops.frontend import extract_features_numpy
 
     _, out, _ = workspace
-    cfg = PipelineConfig()
+    cfg, jcfg = PipelineConfig(), jconfig.PipelineConfig()
     clips = _clips()
     ours = extract_features_numpy(denoise_clips(clips, cfg.denoise), cfg.features)
-    theirs = j_extract(j_denoise(clips, cfg.denoise), cfg.features)
+    theirs = j_extract(j_denoise(clips, jcfg.denoise), jcfg.features)
     assert ours.shape == theirs.shape == (3, 149)
     assert np.abs(ours[:, :120] - theirs[:, :120]).max() < 2e-3
     assert np.abs(ours[:, 120:144] - theirs[:, 120:144]).max() < 1e-5
     assert (ours[:, 144:] == 0).all()
 
-    jp = JPredictor.load(str(out), cfg)
+    jp = JPredictor.load(str(out), jcfg)
     tp = Predictor.load(str(out), cfg, device="cpu")
     assert tp.denoise_first and jp.denoise_first
     for y in clips:
@@ -119,8 +120,8 @@ def test_slice_matches_jax_predictor(workspace):
 
 
 def test_predict_file_resamples_and_shape_guard(workspace, tmp_path):
-    from stutter_tpu.io.wav import write_wav
     from stutter_tpu_torch.infer import Predictor
+    from stutter_tpu_torch.io.wav import write_wav
     from stutter_tpu_torch.models.scaler import StandardScaler
     from stutter_tpu_torch.ops.resample import resample
 
@@ -141,8 +142,8 @@ def test_predict_file_resamples_and_shape_guard(workspace, tmp_path):
 
 
 def test_cli_predict_on_cpu(workspace, tmp_path, capsys):
-    from stutter_tpu.io.wav import write_wav
     from stutter_tpu_torch import cli
+    from stutter_tpu_torch.io.wav import write_wav
 
     root, _, _ = workspace
     wav = tmp_path / "c16.wav"
