@@ -10,7 +10,13 @@
    the 10 s bucket and at the request shape (one 3 s clip), and times both
    (median of CUDA-event timings), beside the least time the card could
    take (`bound`) and, for the two FFT kernels, torch.fft.rfft over the
-   same framed, windowed audio as a yardstick of the STFT stage.
+   same framed, windowed audio as a yardstick of the STFT stage.  Each
+   kernel's device time per call comes from torch.profiler too; spectromel's
+   tuning tail is timed on its own that way, beside its bound (the
+   compacted candidates and frame counts read once, a bin written per
+   clip).  A 10 s clip whose candidates overflow the tail's shared memory
+   (a comb of tones at every other FFT bin) checks the tail's
+   over-capacity path.
 3. Serving, 149-dim: writes full-width artifacts from a numpy seed
    (149-256-128-64-3 MLP with 8 seeds, a scaler, 3 classes), loads them with
    Predictor.load(device="cuda"), answers 8 predict_clip requests with
@@ -125,6 +131,30 @@ def time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn) -> dict:
+    """Device ms per call of each kernel `fn` launches (torch.profiler)."""
+    from stutter_tpu_torch.tools.kernel_phases import kernel_times
+
+    return kernel_times(fn)
+
+
+def tail_numbers(p, n_fft: int) -> dict:
+    """The tuning tail's least time -- the frame counts and the compacted
+    candidates (a u32 key and a u8 bin each) read once, one int32 written
+    per clip -- and its plain version's time on the same compacted
+    candidates.  The candidates are this run's, from the plain piptrack on
+    the kernel's power (the same arithmetic as the kernel's)."""
+    from stutter_tpu_torch.ops.chroma import (
+        compact_candidates, piptrack_candidates, tuning_bin_from_compacted)
+
+    keys, bins, counts = compact_candidates(*piptrack_candidates(p, SR, n_fft))
+    n = int(counts.sum())
+    B, T = counts.shape
+    return {"candidates": n, "max_clip_candidates": int(counts.sum(1).max()),
+            **bound(4 * B * T + 5 * n + 4 * B, 0.0),
+            "plain_ms": time_ms(lambda: tuning_bin_from_compacted(keys, bins, counts))}
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -185,6 +215,8 @@ def compare_spectromel(rng, dev, B: int, N: int, length: int, timed: bool):
     if timed:
         res["ms"] = time_ms(lambda: spectromel(audio, lengths))
         res["plain_ms"] = time_ms(lambda: spectromel_plain(audio, lengths))
+        res["device_ms"] = device_ms(lambda: spectromel(audio, lengths))
+        res["tail"] = {"ms": res["device_ms"]["tuning_tail"], **tail_numbers(p, 2048)}
         framed = frame(audio, 2048, 512) * hann(2048, dev)
         res["stft_library_ms"] = stft_library_ms(framed)
         del framed
@@ -229,15 +261,52 @@ def compare_spectromel_mel(rng, dev, B: int, N: int) -> dict:
                      fft_flops(B * T, 512) + B * T * (3 * K + 2 * mel_nonzeros(512))))
     res["ms"] = time_ms(lambda: spectromel(audio, lengths, **kw))
     res["plain_ms"] = time_ms(lambda: spectromel_plain(audio, lengths, **kw))
+    res["device_ms"] = device_ms(lambda: spectromel(audio, lengths, **kw))
+    res["tail"] = {"ms": res["device_ms"]["tuning_tail"], **tail_numbers(p, 512)}
     framed = frame(audio, 512, 256) * hann(512, dev)
     res["stft_library_ms"] = stft_library_ms(framed)
+    return res
+
+
+def comb_clip(n: int, N: int) -> np.ndarray:
+    """Tones at every other FFT bin (n_fft 2048) of piptrack's band, random
+    phases: nearly every other bin of every frame is a candidate, ~77k in
+    10 s, more than a block's shared memory holds."""
+    t = np.arange(N) / SR
+    phases = np.random.RandomState(7).uniform(0, 2 * np.pi, 256)
+    y = sum(np.sin(2 * np.pi * k * SR / 2048 * t + phases[k // 2]) for k in range(20, 512, 2))
+    y[n:] = 0
+    return (0.05 * y).astype(np.float32)
+
+
+def compare_tail_over_capacity(rng, dev) -> dict:
+    """The 10 s bucket at B=2: the comb clip, whose candidates overflow the
+    tail's shared memory (its over-capacity path), and a clip of tones in
+    noise; each tuning bin equal to the plain estimate on the kernel's
+    power."""
+    import torch
+
+    from stutter_tpu_torch.ops.chroma import estimate_tuning_bin
+    from stutter_tpu_torch.ops.spectromel import spectromel
+
+    N, n = 163840, 160000
+    audio = np.stack([comb_clip(n, N), structured_clips(rng, 1, N)[0]])
+    audio[1, n:] = 0
+    audio = torch.from_numpy(audio).to(dev)
+    lengths = torch.full((2,), n, dtype=torch.int32, device=dev)
+    p, _, tb = spectromel(audio, lengths)
+    res = {"tb": tb.tolist(), "tb_equal_to_own_power": bool(torch.equal(
+        tb, estimate_tuning_bin(p, SR, 2048))), **tail_numbers(p, 2048)}
+    check(res["max_clip_candidates"] * 5 > 232448,
+          f"the comb clip does not overflow the tail's shared memory: {res}")
+    check(res["tb_equal_to_own_power"], f"tail over capacity != plain estimate: {res}")
     return res
 
 
 def compare_chroma_stats(p, tb, lengths) -> dict:
     import torch
 
-    from stutter_tpu_torch.ops.chroma_stats import chroma_stats, chroma_stats_plain
+    from stutter_tpu_torch.ops.chroma_stats import chroma_stats, chroma_stats_plain, cluster_size
 
     n_valid = 1 + torch.div(lengths, 512, rounding_mode="floor")
     got = chroma_stats(p, tb, n_valid)
@@ -246,9 +315,11 @@ def compare_chroma_stats(p, tb, lengths) -> dict:
     check(err < 1e-5, f"chroma_stats err {err}")
     B, T, K = p.shape
     # power, tuning bin and n_valid in, [B, 24] out; the 12-row projection
-    return {"B": B, "max_err": err, **bound(4 * (B * T * K + 2 * B + 24 * B), B * T * 2 * K * 12),
+    return {"B": B, "max_err": err, "cluster": cluster_size(B, T),
+            **bound(4 * (B * T * K + 2 * B + 24 * B), B * T * 2 * K * 12),
             "ms": time_ms(lambda: chroma_stats(p, tb, n_valid)),
-            "plain_ms": time_ms(lambda: chroma_stats_plain(p, tb, n_valid))}
+            "plain_ms": time_ms(lambda: chroma_stats_plain(p, tb, n_valid)),
+            "device_ms": device_ms(lambda: chroma_stats(p, tb, n_valid))}
 
 
 def compare_gate(rng, dev, B: int, N: int, timed: bool) -> dict:
@@ -378,7 +449,7 @@ def write_artifacts(rng, out_dir: str, dev, cfg) -> None:
         params[f"b{i}"] = (rng.randn(n_seeds, b) * 0.05).astype(np.float32)
     clips = list(structured_clips(rng, 16, 3 * SR))
     feats = extract_features_numpy(clips, cfg.features, device=dev)
-    persist.save_mlp(os.path.join(out_dir, "model_mlp_tpu"), SeedMLP.from_jax_params(params))
+    persist.save_mlp(os.path.join(out_dir, "model_mlp_tpu"), SeedMLP.from_jax_params(params, device=dev))
     persist.save_scaler(os.path.join(out_dir, "scaler_after.npz"), StandardScaler.fit(feats))
     persist.save_label_encoder(os.path.join(out_dir, "label_encoder.json"),
                                LabelEncoder(classes_=list(CLASSES)))
@@ -526,7 +597,7 @@ def corpus_phase(rng, dev, root: str) -> dict:
         paths = [files[i] if sfx == "raw" else os.path.join(
             root, cfgs[dim].data.clear_dir, os.path.splitext(os.path.basename(files[i]))[0] + ".wav")
             for i in sample]
-        clips = [decode_audio(p, SR) for p in paths]
+        clips = [decode_audio(p, SR, device="cpu") for p in paths]
         ref = extract_features_numpy(clips, cfgs[dim].features, device="cpu")
         e = np.abs(X[sample] - ref)
         if dim == 149:
@@ -562,7 +633,7 @@ def main() -> int:
         return 1
     from stutter_tpu_torch.config import FEATURES_334, DenoiseConfig, PipelineConfig
     from stutter_tpu_torch import _build
-    from stutter_tpu_torch.infer import resolve_device
+    from stutter_tpu_torch.device import resolve_device
 
     dev = resolve_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -595,13 +666,18 @@ def main() -> int:
     del kernel_out
     gt1 = compare_gate(rng, dev, 1, 49152, timed=True)
     mel1 = compare_spectromel_mel(rng, dev, 1, 49152)
-    for name, res in (("spectromel 3s", sm), ("chroma_stats 3s", cs), ("spectral_gate test", gt_small),
+    # its own generator: the later phases draw the same data as before it was added
+    over = compare_tail_over_capacity(np.random.RandomState(1), dev)
+    for name, res in (("tuning_tail over capacity 10s", over), ("spectromel 3s", sm), ("chroma_stats 3s", cs), ("spectral_gate test", gt_small),
                       ("spectral_gate 3s", gt), ("spectromel 10s", sm10),
                       ("chroma_stats 10s", cs10), ("spectral_gate 10s", gt10),
                       ("spectromel_mel 3s", mel), ("spectromel_mel 10s", mel10),
                       ("spectromel request", sm1), ("chroma_stats request", cs1),
                       ("spectral_gate request", gt1), ("spectromel_mel request", mel1)):
         print(f"{name}: {json.dumps(res)} ({card})")
+    for name, res in (("3s", sm), ("10s", sm10), ("request", sm1), ("mel 3s", mel),
+                      ("mel 10s", mel10), ("mel request", mel1)):
+        print(f"tuning_tail {name} B={res['B']}: {json.dumps(res['tail'])} ({card})")
 
     with tempfile.TemporaryDirectory() as out_dir:  # phase 3: serving, 149-dim
         cfg149 = PipelineConfig()
@@ -651,7 +727,11 @@ def main() -> int:
                 "request_plain_ms": q["plain_ms"], "request_bound_ms": q["bound_ms"],
                 **({"stft_library_ms": r["stft_library_ms"],
                     "request_stft_library_ms": q["stft_library_ms"]}
-                   if "stft_library_ms" in r else {})}
+                   if "stft_library_ms" in r else {}),
+                # spectromel's launch 3, the counterpart of the XLA
+                # tuning_bin_from_candidates (stutter_tpu/ops/chroma.py:213)
+                **({f"{pre}tuning_tail_{k}": t["tail"][k] for pre, t in (("", r), ("request_", q))
+                    for k in ("ms", "plain_ms", "bound_ms")} if "tail" in r else {})}
                for n, err, r, q in rows]
     check(all(k["launches"] > 0 for k in kernels), f"a kernel never launched: {launches}")
     print(json.dumps({"kernels": kernels}))

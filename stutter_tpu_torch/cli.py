@@ -45,7 +45,7 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
 
     from stutter_tpu_torch.config import FEATURES_149, FEATURES_334, PipelineConfig
-    from stutter_tpu_torch.infer import resolve_device
+    from stutter_tpu_torch.device import resolve_device
 
     resolve_device(args.device)  # cuda without a GPU raises before anything is written
     cfg = PipelineConfig(features=FEATURES_334 if args.variant == "334" else FEATURES_149)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from stutter_tpu_torch.config import DenoiseConfig
+from stutter_tpu_torch.device import resolve_device
 from stutter_tpu_torch.ops.consts import F32_TINY
 from stutter_tpu_torch.ops.frontend import DEFAULT_BUCKETS, pad_to_bucket
 from stutter_tpu_torch.ops.spectral_gate import spectral_gate
@@ -54,9 +55,11 @@ def denoise_clips(
     clips: list[np.ndarray],
     cfg: DenoiseConfig = DenoiseConfig(),
     batch_size: int = 64,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> list[np.ndarray]:
-    """Host wrapper: denoise a list of 1-D clips, grouped into sample buckets."""
+    """Host wrapper: denoise a list of 1-D clips, grouped into sample buckets,
+    on `device`."""
+    device = resolve_device(device)
     out: list[np.ndarray | None] = [None] * len(clips)
     by_bucket: dict[int, list[int]] = {}
     for i, y in enumerate(clips):

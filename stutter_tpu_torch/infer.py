@@ -23,25 +23,11 @@ import torch
 
 from stutter_tpu_torch.config import PipelineConfig
 from stutter_tpu_torch.denoise import denoise_batch
+from stutter_tpu_torch.device import resolve_device
 from stutter_tpu_torch.models.mlp import SeedMLP
 from stutter_tpu_torch.models.scaler import LabelEncoder, StandardScaler
 from stutter_tpu_torch.ops.frontend import DEFAULT_BUCKETS, batch_extractor_for, pad_to_bucket
 from stutter_tpu_torch.ops.resample import resample
-
-
-def resolve_device(device: torch.device | str) -> torch.device:
-    """The torch device for `device`; raises when CUDA is asked for and
-    there is no GPU (no silent CPU fallback).  Turns TF32 off, so products
-    on the card run in full FP32 like the parity bounds assume."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device!r} requested but no CUDA GPU is available")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}: use 'cpu' or 'cuda'")
-    return dev
 
 
 @dataclasses.dataclass

@@ -36,6 +36,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from stutter_tpu_torch.device import resolve_device
 from stutter_tpu_torch.ops.resample import resample
 
 Decoder = Callable[[str, int], np.ndarray]
@@ -87,14 +88,16 @@ def read_audio(path: str, sr: int, decoder: Decoder | None = None) -> tuple[np.n
     return np.asarray(y, np.float32), file_sr
 
 
-def to_rate(y: np.ndarray, file_sr: int, sr: int, device: torch.device | str = "cpu") -> np.ndarray:
+def to_rate(y: np.ndarray, file_sr: int, sr: int, device: torch.device | str = "cuda") -> np.ndarray:
     """`y` at `file_sr` resampled to `sr` on `device` (unchanged when equal)."""
+    device = resolve_device(device)
     return y if file_sr == sr else resample(y, file_sr, sr, device=device)
 
 
 def decode_audio(
-    path: str, sr: int, decoder: Decoder | None = None, device: torch.device | str = "cpu"
+    path: str, sr: int, decoder: Decoder | None = None, device: torch.device | str = "cuda"
 ) -> np.ndarray:
     """Decode `path` to mono float32 PCM at `sr` (`read_audio`, then the
     port's resampler on `device` when the rates differ)."""
+    device = resolve_device(device)
     return to_rate(*read_audio(path, sr, decoder), sr, device)

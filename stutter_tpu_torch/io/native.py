@@ -25,6 +25,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from stutter_tpu_torch.device import resolve_device
 from stutter_tpu_torch.io.decode import read_audio, to_rate
 
 _SRC = Path(__file__).resolve().parent.parent / "native" / "stutter_io.cpp"
@@ -83,13 +84,14 @@ def load_wav_batch(
     sr: int = 16000,
     n_threads: int = 8,
     decoder=None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> tuple[np.ndarray, np.ndarray]:
     """Decode a batch into (audio [B, n_max] f32 zero-padded, lengths [B]).
 
     Rows that no decoder reads are zeros with length 0 (the reference's
     degrade-don't-crash loader, pipeline1.py:100-106); an error of the
     resampler on `device` propagates."""
+    device = resolve_device(device)
     B = len(paths)
     out = np.zeros((B, n_samples_max), np.float32)
     lengths = np.zeros(B, np.int32)
@@ -122,13 +124,13 @@ class BatchPrefetcher:
 
     def __init__(self, paths: list[str], n_samples_max: int, batch_size: int = 256,
                  sr: int = 16000, depth: int = 2, decoder=None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.paths = paths
         self.n_samples_max = n_samples_max
         self.batch_size = batch_size
         self.sr = sr
         self.decoder = decoder
-        self.device = device
+        self.device = resolve_device(device)
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._thread = threading.Thread(target=self._producer, daemon=True)
 

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from stutter_tpu_torch.device import resolve_device
+
 
 class SeedMLP(nn.Module):
     """ReLU MLP with weights stacked over seeds; forward -> seed-mean softmax."""
@@ -27,9 +29,11 @@ class SeedMLP(nn.Module):
 
     @classmethod
     def from_jax_params(
-        cls, params: dict[str, np.ndarray], device: torch.device | str = "cpu"
+        cls, params: dict[str, np.ndarray], device: torch.device | str = "cuda"
     ) -> "SeedMLP":
-        """From the JAX pytree {w0, b0, w1, b1, ...}, seed axis first."""
+        """From the JAX pytree {w0, b0, w1, b1, ...}, seed axis first, on
+        `device`."""
+        device = resolve_device(device)
         n_layers = len(params) // 2
         if sorted(params) != sorted([f"w{i}" for i in range(n_layers)]
                                     + [f"b{i}" for i in range(n_layers)]):

@@ -11,7 +11,9 @@ host table indexed by bin.
 The histogram flips on one-ulp differences, so every step here is one f32
 operation in a fixed order, and the CUDA spectromel kernel repeats exactly
 these operations (csrc/spectromel.cu: `candidate_at` for the candidates,
-`tuning_tail` for the median and histogram).  The pitch residual
+compacted per frame as `compact_candidates` lays them out, and
+`tuning_tail` for the median and histogram, as `tuning_bin_from_compacted`
+reads them).  The pitch residual
 is an f64 host table at the bin plus an 8-term series in shift/bin, never a
 device log2.
 """
@@ -43,7 +45,8 @@ def piptrack_candidates(
 
     mags: interpolated magnitude at candidates, 0 elsewhere; idxm: the
     candidate's residual histogram bin 0..99 as f32, -1 where there is no
-    candidate.  This uncompacted layout is what the spectromel kernel emits.
+    candidate.  The spectromel kernel emits these compacted per frame
+    (`compact_candidates`).
     """
     lo, hi = band_range(sr, n_fft, PIP_FMIN, PIP_FMAX)
     S = power
@@ -91,6 +94,56 @@ def tuning_bin_from_candidates(
     hist.scatter_add_(1, idx, sel.long())
     first_max = torch.argmax(hist, dim=-1)
     return torch.where(sel.any(dim=-1), first_max, n_bins // 2).to(torch.int32)
+
+
+def ordered_keys(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the order-preserving u32 key of csrc/spectromel.cu:ordered_key
+    (negative values reversed), as int64."""
+    u = x.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    return torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+
+
+def keys_to_f32(keys: torch.Tensor) -> torch.Tensor:
+    """Inverse of `ordered_keys`, from u32 keys held in any integer type."""
+    k = keys.long() & 0xFFFFFFFF
+    u = torch.where(k >= 0x80000000, k & 0x7FFFFFFF, k ^ 0xFFFFFFFF)
+    return torch.where(u >= 0x80000000, u - (1 << 32), u).to(torch.int32).view(torch.float32)
+
+
+def compact_candidates(
+    mags: torch.Tensor, idxm: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Uncompacted candidates [B, T, W] -> the spectromel kernel's compacted
+    layout: (keys [B, T, cap] int32 holding the u32 `ordered_keys` of the
+    magnitudes, bins [B, T, cap] uint8, counts [B, T] int32), cap =
+    ceil(W / 2).  Frame t's candidates fill slots 0 .. counts - 1 in bin
+    order; the kernel leaves the other slots unwritten, this fills them
+    with 0.  Local maxima are never adjacent, so cap slots always suffice."""
+    B, T, W = mags.shape
+    cap = (W + 1) // 2
+    cand = idxm >= 0
+    counts = cand.sum(dim=-1, dtype=torch.int32)
+    if bool((counts > cap).any()):
+        raise ValueError(f"more than {cap} candidates in a frame of {W} bins: adjacent maxima")
+    slot = torch.where(cand, torch.cumsum(cand, dim=-1) - 1, cap)  # slot cap: discarded
+    key = torch.where(cand, ordered_keys(mags), 0)
+    keys = torch.zeros(B, T, cap + 1, dtype=torch.int64, device=mags.device)
+    keys.scatter_(2, slot, key)
+    keys = torch.where(keys >= 0x80000000, keys - (1 << 32), keys)[..., :cap].to(torch.int32)
+    bins = torch.zeros(B, T, cap + 1, dtype=torch.uint8, device=mags.device)
+    bins.scatter_(2, slot, torch.where(cand, torch.round(idxm), 0).to(torch.uint8))
+    return keys, bins[..., :cap], counts
+
+
+def tuning_bin_from_compacted(
+    keys: torch.Tensor, bins: torch.Tensor, counts: torch.Tensor, n_bins: int = TUNE_BINS
+) -> torch.Tensor:
+    """The compacted layout of `compact_candidates` -> [B] int32 tuning bin,
+    as csrc/spectromel.cu:tuning_tail computes it from the same layout:
+    only slots below each frame's count are read."""
+    valid = torch.arange(keys.shape[-1], device=keys.device) < counts[..., None]
+    mags = torch.where(valid, keys_to_f32(keys), 0.0)
+    return tuning_bin_from_candidates(mags, torch.where(valid, bins.float(), -1.0), n_bins)
 
 
 def estimate_tuning_bin(

@@ -3,13 +3,15 @@
 Replaces the TPU kernel `chroma_stats_pallas` (stutter_tpu/ops/pallas_chroma.py:95):
 frame-masked power [B, T, K] + tuning bin [B] + valid frame count [B] ->
 [B, 2 * n_chroma] (chroma means, then stds, over valid frames).  A CUDA
-tensor launches csrc/chroma_stats.cu; a CPU tensor runs the plain version.
+tensor launches csrc/chroma_stats.cu (a cluster of `cluster_size` blocks per
+clip); a CPU tensor runs the plain version.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from stutter_tpu_torch import _build
@@ -32,9 +34,26 @@ def chroma_stats_plain(
     return torch.cat([mean, std], dim=-1)
 
 
+BLOCKS = 256  # blocks a launch aims at: ~2 on each of an H100's 132 SMs
+
+
+def cluster_size(B: int, T: int) -> int:
+    """Blocks per clip: up to 8 (a portable cluster), BLOCKS over the batch
+    (the best of 1, 2, 3, 4 and 8 on an H100 at B=256 x 3 s, B=64 x 10 s
+    and one 3 s request, `PERF.md`), and no more than the clip's 4-frame
+    groups."""
+    return max(1, min(8, -(-BLOCKS // B), -(-T // 4)))
+
+
 @lru_cache(maxsize=None)
 def _device_table(device: str, sr: int, n_fft: int, n_chroma: int) -> torch.Tensor:
-    return torch.as_tensor(fb_table_rows(sr, n_fft, n_chroma), device=device)
+    """[100 * n_chroma, KP]: the filterbank rows, zero past K.  KP is K + 3
+    rounded up to a multiple of 128, the bins a warp of the kernel covers a
+    step (its last step reads up to 3 bins past K)."""
+    rows = fb_table_rows(sr, n_fft, n_chroma)
+    table = np.zeros((rows.shape[0], -(-(rows.shape[1] + 3) // 128) * 128), np.float32)
+    table[:, : rows.shape[1]] = rows
+    return torch.as_tensor(table, device=device)
 
 
 def _chroma_stats_cuda(power, tuning_bin, n_valid, sr, n_fft, n_chroma):
@@ -45,13 +64,16 @@ def _chroma_stats_cuda(power, tuning_bin, n_valid, sr, n_fft, n_chroma):
     if tuning_bin.device != power.device or n_valid.device != power.device:
         raise ValueError("chroma_stats kernel takes tuning_bin and n_valid on power's device")
     power = power.contiguous()
+    if power.data_ptr() % 16:  # the kernel reads aligned float4s
+        power = power.clone()
     tb = tuning_bin.to(torch.int32).contiguous()
     nv = n_valid.to(torch.int32).contiguous()
     table = _device_table(str(power.device), sr, n_fft, n_chroma)
     out = torch.empty(B, 2 * n_chroma, device=power.device)
-    fn = _build.bind("chroma_stats", "chroma_stats_launch", 5, 4)
+    fn = _build.bind("chroma_stats", "chroma_stats_launch", 5, 6)
     rc = fn(power.data_ptr(), tb.data_ptr(), nv.data_ptr(), table.data_ptr(), out.data_ptr(),
-            B, T, K, table.shape[0], _build.stream_of(power))
+            B, T, K, table.shape[1], table.shape[0] // n_chroma, cluster_size(B, T),
+            _build.stream_of(power))
     _build.check(rc, "chroma_stats_launch")
     chroma_stats.launches += 1
     return out

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from stutter_tpu_torch.device import resolve_device
 from stutter_tpu_torch.ops.chroma_stats import chroma_stats
 from stutter_tpu_torch.ops.masked import frame_mask, masked_mean_std
 from stutter_tpu_torch.ops.spectral import db_from_mel
@@ -85,10 +86,11 @@ def run_bucketed(
     out_dim: int,
     buckets=DEFAULT_BUCKETS,
     batch_size: int = 256,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> np.ndarray:
     """Group clips by sample bucket, pad, run `batch_fn(audio [B, N],
     lengths [B]) -> [B, out_dim]` on `device`, and restore the order."""
+    device = resolve_device(device)
     out = np.zeros((len(clips), out_dim), np.float32)
     by_bucket: dict[int, list[int]] = {}
     for i, y in enumerate(clips):
@@ -132,8 +134,8 @@ def extract_features_numpy(
     feature_cfg,
     buckets=DEFAULT_BUCKETS,
     batch_size: int = 256,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> np.ndarray:
-    """Clips -> [n, feature_cfg.total_feature_len] features."""
+    """Clips -> [n, feature_cfg.total_feature_len] features on `device`."""
     return run_bucketed(clips, batch_extractor_for(feature_cfg), feature_cfg.total_feature_len,
                         buckets, batch_size, device)

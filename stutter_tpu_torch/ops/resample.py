@@ -15,6 +15,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from stutter_tpu_torch.device import resolve_device
+
 
 @lru_cache(maxsize=None)
 def _polyphase_filter(L: int, M: int, taps_per_phase: int = 24, beta: float = 14.769656459379492):
@@ -56,11 +58,12 @@ RESAMPLE_BUCKET = 16384  # input lengths pad to this multiple
 
 
 def resample(
-    y: np.ndarray, sr_in: int, sr_out: int, device: torch.device | str = "cpu"
+    y: np.ndarray, sr_in: int, sr_out: int, device: torch.device | str = "cuda"
 ) -> np.ndarray:
-    """1-D clip -> resampled 1-D clip.  The input is zero-padded to a
-    RESAMPLE_BUCKET multiple, which leaves the samples unchanged (taps past
-    the end read zeros either way) and keeps the set of shapes bounded."""
+    """1-D clip -> resampled 1-D clip, on `device`.  The input is zero-padded
+    to a RESAMPLE_BUCKET multiple, which leaves the samples unchanged (taps
+    past the end read zeros either way) and keeps the set of shapes bounded."""
+    device = resolve_device(device)
     n = len(y)
     n_out = int(math.ceil(n * sr_out / sr_in))
     n_pad = -(-max(n, 1) // RESAMPLE_BUCKET) * RESAMPLE_BUCKET

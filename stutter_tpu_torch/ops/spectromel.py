@@ -12,10 +12,12 @@ librosa tuning bin [B].
 `spectromel` dispatches on where the audio lies: a CPU tensor runs
 `spectromel_plain`; a CUDA tensor launches csrc/spectromel.cu (per frame
 tile: the shared-memory FFT, power, mel over each band's nonzero bins and
-the piptrack candidates; in stats mode dB/DCT/SavGol/stats per clip; the
-tuning bin per clip, as `ops.chroma.tuning_bin_from_candidates` computes
-it).  The kernel takes n_fft in 512, 1024, 2048 and any hop >= 2 that
-divides n_fft and the bucket, in both modes.
+the piptrack candidates, compacted per frame as
+`ops.chroma.compact_candidates` lays them out; in stats mode
+dB/DCT/SavGol/stats per clip; the tuning bin per clip from the compacted
+candidates, as `ops.chroma.tuning_bin_from_compacted` computes it).  The
+kernel takes n_fft in 512, 1024, 2048 and any hop >= 2 that divides n_fft
+and the bucket, in both modes.
 """
 
 from __future__ import annotations
@@ -112,8 +114,12 @@ def _spectromel_cuda(audio, lengths, sr, n_fft, hop, n_mels, n_mfcc, n_chroma, w
     dev = audio.device
     power = torch.empty(B, T, K, device=dev)
     mel = torch.empty(B, T, n_mels, device=dev)
-    mags = torch.empty(B, T, hi - lo, device=dev)
-    idxm = torch.empty(B, T, hi - lo, device=dev)
+    # compacted candidates: per frame `cap` slots of u32 keys (held as int32)
+    # and u8 bins, filled up to the frame's count
+    cap = (hi - lo + 1) // 2
+    keys = torch.empty(B, T, cap, dtype=torch.int32, device=dev)
+    bins = torch.empty(B, T, cap, dtype=torch.uint8, device=dev)
+    counts = torch.empty(B, T, dtype=torch.int32, device=dev)
     tb = torch.empty(B, dtype=torch.int32, device=dev)
     # the series factor is rounded to f32 exactly as the plain version's
     # Python-float scalar is
@@ -121,17 +127,17 @@ def _spectromel_cuda(audio, lengths, sr, n_fft, hop, n_mels, n_mfcc, n_chroma, w
     tile = frame_tile(n_fft, T, B)
     stream = _build.stream_of(audio)
     if not with_stats:
-        fn = _build.bind("spectromel", "spectromel_mel_launch", 12, 8, 1)
+        fn = _build.bind("spectromel", "spectromel_mel_launch", 13, 8, 1)
         ptrs = [t.data_ptr() for t in (audio, lengths, win, tw, ranges, weights, rtab, power,
-                                       mel, mags, idxm, tb)]
+                                       mel, keys, bins, counts, tb)]
         rc = fn(*ptrs, B, N, n_fft, hop, tile, n_mels, lo, hi, c_ln2, stream)
         _build.check(rc, "spectromel_mel_launch")
         spectromel.mel_launches += 1
         return power, mel, tb
     stats = torch.empty(B, 6, n_mfcc, device=dev)
-    fn = _build.bind("spectromel", "spectromel_launch", 15, 9, 1)
+    fn = _build.bind("spectromel", "spectromel_launch", 16, 9, 1)
     ptrs = [t.data_ptr() for t in (audio, lengths, win, tw, ranges, weights, rtab, dct_t, sg,
-                                   power, mel, mags, idxm, stats, tb)]
+                                   power, mel, keys, bins, counts, stats, tb)]
     rc = fn(*ptrs, B, N, n_fft, hop, tile, n_mels, n_mfcc, lo, hi, c_ln2, stream)
     _build.check(rc, "spectromel_launch")
     spectromel.launches += 1

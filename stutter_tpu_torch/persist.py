@@ -33,7 +33,8 @@ def save_mlp(path: str | Path, model: SeedMLP) -> None:
     Path(path + ".json").write_text(json.dumps(meta))
 
 
-def load_mlp(path: str | Path, device: torch.device | str = "cpu") -> SeedMLP:
+def load_mlp(path: str | Path, device: torch.device | str = "cuda") -> SeedMLP:
+    """<path>.npz + <path>.json -> the SeedMLP on `device`."""
     path = str(path)
     with np.load(path + ".npz") as z:
         params = dict(z)

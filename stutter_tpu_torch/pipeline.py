@@ -34,7 +34,7 @@ from stutter_tpu_torch.config import DenoiseConfig, PipelineConfig
 from stutter_tpu_torch.data import label_of, list_audio_files
 from stutter_tpu_torch.denoise import denoise_clips
 from stutter_tpu_torch.evals import write_csv
-from stutter_tpu_torch.infer import resolve_device
+from stutter_tpu_torch.device import resolve_device
 from stutter_tpu_torch.io.decode import read_audio, to_rate
 from stutter_tpu_torch.io.wav import load_mono, write_wav
 from stutter_tpu_torch.ops.frontend import DEFAULT_BUCKETS, batch_extractor_for, run_bucketed
@@ -56,9 +56,10 @@ def setup_logging(output_dir: str) -> None:
 
 
 def _load_clip(path: str, sr: int, decoder=None,
-               device: torch.device | str = "cpu") -> np.ndarray | None:
+               device: torch.device | str = "cuda") -> np.ndarray | None:
     """The clip at `sr`, or None when no decoder reads the file
     (ref pipeline1.py:100-106); resampling runs on `device`."""
+    device = resolve_device(device)
     try:
         y, file_sr = read_audio(path, sr, decoder)
     except Exception as e:  # noqa: BLE001 - an undecodable file degrades its row
@@ -68,12 +69,13 @@ def _load_clip(path: str, sr: int, decoder=None,
 
 
 def _denoise_with_fallback(
-    clips: list, cfg: DenoiseConfig, device: torch.device | str = "cpu"
+    clips: list, cfg: DenoiseConfig, device: torch.device | str = "cuda"
 ) -> list[np.ndarray | None]:
     """Denoise a batch of clips; a clip that is not 1-D float audio is left
     out and returned as None (the caller keeps it raw, ref main.py:662-663).
     Errors of the denoiser itself -- a kernel that fails to build or
     launch -- propagate."""
+    device = resolve_device(device)
     out: list[np.ndarray | None] = [None] * len(clips)
     good: list[tuple[int, np.ndarray]] = []
     for i, y in enumerate(clips):

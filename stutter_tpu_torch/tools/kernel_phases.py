@@ -2,13 +2,18 @@
 
     python -m stutter_tpu_torch.tools.kernel_phases
 
-Builds variants of csrc/spectral_gate.cu and csrc/spectromel.cu with one
-phase switched off (a -D flag guards each phase's loop or call; the
-variant's output is wrong and only its time counts), runs each at the
-batch shapes -- the gate at B=64 x 3 s, spectromel's stats mode at B=256 x
-3 s -- and prints one JSON line per variant: each kernel's device time per
-call from torch.profiler and the card's name and power limit.  A phase's
-cost is the full build's time less the variant's.  The phases are found
+Builds variants of csrc/spectral_gate.cu, csrc/spectromel.cu and
+csrc/chroma_stats.cu with one phase switched off (a -D flag guards each
+phase's loop or call; the variant's output is wrong and only its time
+counts), runs each at the batch shapes -- the gate at B=64 x 3 s,
+spectromel's stats mode and chroma_stats at B=256 x 3 s -- and prints one
+JSON line per variant: each kernel's device time per call from
+torch.profiler and the card's name and power limit.  A phase's cost is the
+full build's time less the variant's.  The tail's phases: `tail_load`
+(reading the candidates into shared memory), `tail_select` (the four radix
+passes), `tail_histogram`; chroma_stats's: `chroma_load` (the power loads),
+`chroma_project` (11 of the 12 channels' FMAs and filterbank reads),
+`chroma_reduce` (the leader's mean and variance).  The phases are found
 by text in the sources: when a source changes, a phase whose text is gone
 stops the run, and its pattern here is brought up to date.
 """
@@ -59,8 +64,24 @@ PHASES = {
         "frames_fft": ("  fft_windowed<M>(buf, tf, tw, span, hop, win);\n\n  float* out = power",
                        "  if (!OFF) fft_windowed<M>(buf, tf, tw, span, hop, win);\n\n"
                        "  float* out = power"),
-        "frames_candidates": ("  const int W = hi - lo;\n", "  const int W = OFF ? 0 : hi - lo;\n"),
+        "frames_candidates": ("  for (int f = warp; f < tf; f += THREADS / 32) {\n    const size_t row",
+                              "  for (int f = warp; f < (OFF ? 0 : tf); f += THREADS / 32) {\n"
+                              "    const size_t row"),
         "frames_mel": ("i < tf * n_mels; i += THREADS", "i < (OFF ? 0 : tf * n_mels); i += THREADS"),
+        "tail_load": ("i0 < n; i0 += 4 * TAIL_THREADS", "i0 < (OFF ? 0 : n); i0 += 4 * TAIL_THREADS"),
+        "tail_select": ("for (int shift = 24; shift >= 0; shift -= 8)",
+                        "for (int shift = 24; shift >= (OFF ? 32 : 0); shift -= 8)"),
+        "tail_histogram": ("i < n; i += TAIL_THREADS) {\n    unsigned k;\n    int d;\n"
+                           "    c.at(i, k, d);\n    if (from_key",
+                           "i < (OFF ? 0 : n); i += TAIL_THREADS) {\n    unsigned k;\n    int d;\n"
+                           "    c.at(i, k, d);\n    if (from_key"),
+    },
+    "chroma_stats.cu": {
+        "chroma_load": ("  return 4 * a < w.lim ? __ldg(p4 + a)", "  return !OFF && 4 * a < w.lim ? __ldg(p4 + a)"),
+        "chroma_project": ("      for (int c = 0; c < NCH; ++c) {\n        const float4 f =",
+                           "      for (int c = 0; c < (OFF ? 1 : NCH); ++c) {\n        const float4 f ="),
+        "chroma_reduce": ("  for (int c = warp; c < NCH; c += NWARPS) {",
+                          "  for (int c = warp; c < (OFF ? 0 : NCH); c += NWARPS) {"),
     },
 }
 
@@ -169,15 +190,47 @@ def spectromel_runner(lib, dev):
     lengths = torch.full((B,), 48000, dtype=torch.int32, device=dev)
     lo, hi = consts.band_range(16000, n_fft, consts.PIP_FMIN, consts.PIP_FMAX)
     tables = sm._device_tables(str(dev), 16000, n_fft, 128, 20, 12)
+    cap = (hi - lo + 1) // 2
+    # counts start at 0: the variant without candidates writes none
     outs = [torch.empty(B, T, K, device=dev), torch.empty(B, T, 128, device=dev),
-            torch.zeros(B, T, hi - lo, device=dev), torch.full((B, T, hi - lo), -1.0, device=dev),
+            torch.empty(B, T, cap, dtype=torch.int32, device=dev),
+            torch.empty(B, T, cap, dtype=torch.uint8, device=dev),
+            torch.zeros(B, T, dtype=torch.int32, device=dev),
             torch.empty(B, 6, 20, device=dev), torch.empty(B, dtype=torch.int32, device=dev)]
     fn = lib.spectromel_launch
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     ptrs = [x.data_ptr() for x in (audio, lengths, *tables, *outs)]
     stream = _build.stream_of(audio)
     return lambda: fn(*ptrs, B, N, n_fft, hop, consts.frame_tile(n_fft, T, B), 128, 20, lo, hi,
                       12 / math.log(2.0), stream)
+
+
+def chroma_runner(lib, dev):
+    """The chroma_stats launcher at B=256 x 3 s (T = 97, 94 valid frames)
+    on a power-like input, with the wrapper's table and cluster size."""
+    import numpy as np
+    import torch
+
+    from stutter_tpu_torch import _build
+    from stutter_tpu_torch.ops import chroma_stats as cs
+
+    B, T, K = 256, 97, 1025
+    rng = np.random.RandomState(1)
+    power = torch.from_numpy((rng.rand(B, T, K) ** 4).astype(np.float32)).to(dev)
+    tb = torch.from_numpy(rng.randint(0, 100, B).astype(np.int32)).to(dev)
+    nv = torch.full((B,), 94, dtype=torch.int32, device=dev)
+    table = cs._device_table(str(dev), 16000, 2048, 12)
+    out = torch.empty(B, 24, device=dev)
+    fn = lib.chroma_stats_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    ptrs = [x.data_ptr() for x in (power, tb, nv, table, out)]
+    stream = _build.stream_of(power)
+    return lambda: fn(*ptrs, B, T, K, table.shape[1], table.shape[0] // 12,
+                      cs.cluster_size(B, T), stream)
+
+
+RUNNERS = {"spectral_gate.cu": gate_runner, "spectromel.cu": spectromel_runner,
+           "chroma_stats.cu": chroma_runner}
 
 
 def main() -> int:
@@ -186,7 +239,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_phases: no CUDA GPU available", file=sys.stderr)
         return 1
-    from stutter_tpu_torch.infer import resolve_device
+    from stutter_tpu_torch.device import resolve_device
 
     dev = resolve_device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -194,8 +247,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         libs = build_variants(Path(d))
         for (src, phase), lib in libs.items():
-            runner = gate_runner if src == "spectral_gate.cu" else spectromel_runner
-            run = runner(lib, dev)
+            run = RUNNERS[src](lib, dev)
             times = kernel_times(lambda: _check(run()))
             print(json.dumps({"source": src, "off": phase, "ms": times, "card": card}), flush=True)
     return 0

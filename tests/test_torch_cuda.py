@@ -19,7 +19,7 @@ pytestmark = pytest.mark.gpu
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
-    from stutter_tpu_torch.infer import resolve_device
+    from stutter_tpu_torch.device import resolve_device
 
     return resolve_device("cuda")
 
@@ -212,3 +212,73 @@ def test_wrappers_reject_unsupported_geometry(cuda):
         spectral_gate(torch.zeros(1, 10, 100, device=cuda), 400, 100, DenoiseConfig())
     with pytest.raises(ValueError):  # ratio 2
         spectral_gate(torch.zeros(1, 10, 512, device=cuda), 1024, 512, DenoiseConfig())
+
+
+def _comb(N, n, n_fft, lo, hi):
+    """Tones at every other FFT bin of [lo, hi), random phases: nearly every
+    other bin of every frame is a piptrack candidate."""
+    t = np.arange(N) / 16000
+    ph = np.random.RandomState(8).uniform(0, 2 * np.pi, hi)
+    y = sum(np.sin(2 * np.pi * k * 16000 / n_fft * t + ph[k]) for k in range(lo, hi, 2))
+    y[n:] = 0
+    return (0.05 * y).astype(np.float32)
+
+
+@pytest.mark.parametrize("with_stats", [True, False])
+def test_tuning_tail_over_capacity_matches_plain(cuda, with_stats):
+    """A 10 s clip whose candidates (~77k at n_fft 2048) overflow a block's
+    shared memory takes the tail's device-memory path; beside it a clip of
+    tones in noise and a silent one.  Both modes: the tuning bin equals the
+    plain estimate on the kernel's own power (the mel mode's comb, at
+    n_fft 512, fits its shared memory)."""
+    from stutter_tpu_torch.ops.chroma import (
+        compact_candidates, estimate_tuning_bin, piptrack_candidates)
+    from stutter_tpu_torch.ops.consts import PIP_FMAX, PIP_FMIN, band_range
+    from stutter_tpu_torch.ops.spectromel import spectromel
+
+    N, n = 163840, 160000
+    n_fft, hop = (2048, 512) if with_stats else (512, 256)
+    lo, hi = band_range(16000, n_fft, PIP_FMIN, PIP_FMAX)
+    audio = _clips(9, 3, N)
+    audio[0] = _comb(N, n, n_fft, lo, hi)
+    audio = torch.from_numpy(audio).to(cuda)
+    le = torch.tensor([n, n, n], dtype=torch.int32, device=cuda)
+    audio[:, n:] = 0
+    p, _, tb = spectromel(audio, le, n_fft=n_fft, hop_length=hop, with_stats=with_stats)
+    counts = compact_candidates(*piptrack_candidates(p, 16000, n_fft))[2].sum(1)
+    if with_stats:
+        assert int(counts[0]) * 5 > 232448  # more than a block's shared memory
+    assert torch.equal(tb, estimate_tuning_bin(p, 16000, n_fft)) and int(tb[2]) == 50
+
+
+@pytest.mark.parametrize("B,T,K,n_valid", [
+    (1, 97, 1025, [94]),  # one 3 s request: 24 groups over the cluster's 28 warps
+    (1, 50, 1025, [50]),  # 13 groups: uneven among the blocks
+    (3, 97, 1025, [0, 1, 97]),  # no frame, one frame, every frame
+    (5, 321, 1025, [321, 200, 3, 160, 0]),  # the 10 s bucket
+    (2, 33, 257, [33, 17]),  # n_fft 512: K = 257
+])
+def test_chroma_stats_cluster_shapes_match_plain(cuda, B, T, K, n_valid):
+    """chroma_stats within 1e-5 of its plain version on power-like inputs,
+    with more than one block per clip at B=1; frames past n_valid are not
+    read (NaN there changes nothing)."""
+    from stutter_tpu_torch.ops.chroma_stats import chroma_stats, chroma_stats_plain, cluster_size
+
+    rng = np.random.RandomState(10 + B)
+    p = torch.from_numpy((rng.rand(B, T, K) ** 4).astype(np.float32)).to(cuda)
+    nv = torch.tensor(n_valid, dtype=torch.int32, device=cuda)
+    for b, v in enumerate(n_valid):
+        p[b, v:] = 0.0
+    tb = torch.from_numpy(rng.randint(0, 100, B).astype(np.int32)).to(cuda)
+    ref = chroma_stats_plain(p, tb, nv, n_fft=2 * (K - 1))
+    for b, v in enumerate(n_valid):
+        p[b, v:] = float("nan")
+    before = chroma_stats.launches
+    got = chroma_stats(p, tb, nv, n_fft=2 * (K - 1))
+    assert chroma_stats.launches == before + 1
+    assert B > 1 or cluster_size(B, T) > 1
+    assert float((got - ref).abs().max()) < 1e-5
+    for b, v in enumerate(n_valid):
+        if v == 0:
+            assert not got[b].any()
+    assert torch.equal(got, chroma_stats(p, tb, nv, n_fft=2 * (K - 1)))  # run to run

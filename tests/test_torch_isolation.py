@@ -63,7 +63,8 @@ for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
     params[f"w{i}"] = rng.randn(2, a, b).astype(np.float32) * 0.1
     params[f"b{i}"] = np.zeros((2, b), np.float32)
 with tempfile.TemporaryDirectory() as d:
-    persist.save_mlp(os.path.join(d, "model_mlp_tpu"), SeedMLP.from_jax_params(params))
+    persist.save_mlp(os.path.join(d, "model_mlp_tpu"),
+                     SeedMLP.from_jax_params(params, device="cpu"))
     persist.save_scaler(os.path.join(d, "scaler_after.npz"),
                         StandardScaler.fit(rng.randn(5, 149).astype(np.float32)))
     persist.save_label_encoder(os.path.join(d, "label_encoder.json"),
@@ -195,7 +196,8 @@ def test_native_loader_builds_in_the_port_and_reads_like_the_jax_one(tmp_path):
         paths.append(str(tmp_path / f"c{i}.wav"))
         write_wav(paths[-1], (0.3 * rng.randn(n)).astype(np.float32), 16000)
     (tmp_path / "bad.wav").write_bytes(b"RIFF....")
-    audio, lengths = native.load_wav_batch([*paths, str(tmp_path / "bad.wav")], 16384, 16000)
+    audio, lengths = native.load_wav_batch([*paths, str(tmp_path / "bad.wav")], 16384, 16000,
+                                            device="cpu")
     for i, p in enumerate(paths):
         y, _ = read_wav(p)
         assert lengths[i] == len(y)

@@ -200,21 +200,23 @@ def test_decode_hooks(runs, tmp_path):
 
     ogg = runs["roots"]["torch"] / "segrigated_samples" / "c" / "hooked.ogg"
     with pytest.raises(ValueError, match="RIFF"):
-        decode_audio(str(ogg), SR)
+        decode_audio(str(ogg), SR, device="cpu")
     jdecode.register_decoder(".ogg", hooked_decoder)
     try:
         with pytest.raises(ValueError, match="RIFF"):
-            decode_audio(str(ogg), SR)
+            decode_audio(str(ogg), SR, device="cpu")
     finally:
         jdecode.unregister_decoder(".ogg")
     register_decoder(".ogg", hooked_decoder)
     try:
-        np.testing.assert_array_equal(decode_audio(str(ogg), SR), hooked_decoder(str(ogg), SR))
-        audio, lens = load_wav_batch([str(ogg)], 24576, SR)
+        np.testing.assert_array_equal(decode_audio(str(ogg), SR, device="cpu"),
+                                      hooked_decoder(str(ogg), SR))
+        audio, lens = load_wav_batch([str(ogg)], 24576, SR, device="cpu")
         assert lens[0] == 12000 and (audio[0, :12000] == hooked_decoder(str(ogg), SR)).all()
     finally:
         unregister_decoder(".ogg")
-    explicit = decode_audio(str(ogg), SR, decoder=lambda p, sr: np.ones(7, np.float64))
+    explicit = decode_audio(str(ogg), SR, decoder=lambda p, sr: np.ones(7, np.float64),
+                            device="cpu")
     assert explicit.dtype == np.float32 and (explicit == 1).all()
 
     # without the hook, a fresh workspace's .ogg row degrades to ok=False
@@ -314,7 +316,7 @@ def test_denoise_fallback_raises_kernel_errors_and_degrades_bad_clips(monkeypatc
     out = pipeline._denoise_with_fallback([good[0], np.zeros((4, 100)), "x", good[1]],
                                           DenoiseConfig(), device="cpu")
     assert out[1] is None and out[2] is None
-    for got, ref in zip((out[0], out[3]), denoise_clips(good)):
+    for got, ref in zip((out[0], out[3]), denoise_clips(good, device="cpu")):
         np.testing.assert_array_equal(got, ref)
 
     def failing_denoise(clips, cfg, device):
@@ -372,7 +374,7 @@ def test_denoise_clips_matches_jax_at_main_py_protocol():
     clips = [(0.5 * np.sin(2 * np.pi * 440 * t[:n]) * (t[:n] % 0.25 < 0.125)
               + 0.05 * rng.randn(n)).astype(np.float32) for n in (9000, 30000)]
     clips.append(np.zeros(5000, np.float32))
-    ours, theirs = denoise_clips(clips, CFG.denoise), j_denoise_clips(clips, JCFG.denoise)
+    ours, theirs = denoise_clips(clips, CFG.denoise, device="cpu"), j_denoise_clips(clips, JCFG.denoise)
     for y, a, b in zip(clips, ours, theirs):
         assert a.shape == b.shape == y.shape
         np.testing.assert_allclose(a, b, rtol=0, atol=5e-5)

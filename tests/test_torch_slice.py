@@ -54,7 +54,7 @@ def workspace(tmp_path_factory):
     rng = np.random.RandomState(22)
     fit_clips = [(rng.randn(rng.randint(12000, 24000)) * s).astype(np.float32)
                  for s in (0.05, 0.1, 0.2, 0.4)]
-    feats = extract_features_numpy(_clips() + fit_clips, PipelineConfig().features)
+    feats = extract_features_numpy(_clips() + fit_clips, PipelineConfig().features, device="cpu")
     params = _params(23)
     fitted = FittedMLP(params=params, n_seeds=3,
                        cfg=MLPTrainConfig(hidden=HIDDEN, n_classes=3))
@@ -74,7 +74,7 @@ def test_from_jax_params_matches_jax_forward():
     x = np.random.RandomState(25).randn(5, 149).astype(np.float32)
     ref = np.asarray(predict_proba_grid({k: jnp.asarray(v) for k, v in params.items()},
                                         jnp.broadcast_to(jnp.asarray(x), (4, 5, 149)))).mean(0)
-    model = SeedMLP.from_jax_params(params)
+    model = SeedMLP.from_jax_params(params, device="cpu")
     assert model.n_seeds == 4
     with torch.no_grad():
         got = model(torch.from_numpy(x)).numpy()
@@ -82,7 +82,7 @@ def test_from_jax_params_matches_jax_forward():
     for k, v in model.to_jax_params().items():
         np.testing.assert_array_equal(v, params[k])
     with pytest.raises(ValueError):
-        SeedMLP.from_jax_params({"w0": params["w0"]})
+        SeedMLP.from_jax_params({"w0": params["w0"]}, device="cpu")
 
 
 def test_slice_matches_jax_predictor(workspace):
@@ -100,7 +100,8 @@ def test_slice_matches_jax_predictor(workspace):
     _, out, _ = workspace
     cfg, jcfg = PipelineConfig(), jconfig.PipelineConfig()
     clips = _clips()
-    ours = extract_features_numpy(denoise_clips(clips, cfg.denoise), cfg.features)
+    ours = extract_features_numpy(denoise_clips(clips, cfg.denoise, device="cpu"), cfg.features,
+                                  device="cpu")
     theirs = j_extract(j_denoise(clips, jcfg.denoise), jcfg.features)
     assert ours.shape == theirs.shape == (3, 149)
     assert np.abs(ours[:, :120] - theirs[:, :120]).max() < 2e-3
@@ -128,7 +129,7 @@ def test_predict_file_resamples_and_shape_guard(workspace, tmp_path):
     _, out, _ = workspace
     tp = Predictor.load(str(out), device="cpu")
     y = _clips()[0][:16000]
-    y22 = resample(y, 16000, 22050)
+    y22 = resample(y, 16000, 22050, device="cpu")
     wav = tmp_path / "c22.wav"
     write_wav(wav, y22, 22050, subtype="FLOAT")
     r_file = tp.predict_file(str(wav))
