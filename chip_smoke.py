@@ -29,13 +29,36 @@
 5. Serving, 286-dim (--variant 334, the main.py protocol with
    prop_decrease 0.8): 286-256-128-64-3 artifacts, the same 8 requests,
    CUDA against CPU.
-6. Profiles one call each of the 149-dim batch front end, the batch gate
-   and one 149-dim request with torch.profiler: device time per kernel,
-   launches, and the device's idle share of the wall time.
-7. Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
+6. Profiles one call each of the 149-dim batch front end, the batch gate,
+   one 149-dim request and one request to the vote with torch.profiler:
+   device time per kernel, launches, and the device's idle share of the
+   wall time.
+7. The headline model: writes the production quint (cnn, cnn_bilstm and
+   the three transformer recipes, 3 classes, published widths) from a numpy
+   seed through the port's persist_seq_head, its normalization stats from
+   16 clips' frames, and ensemble.json; EnsemblePredictor.load(device=
+   "cuda") and warmup(); 8 predict_clip requests (the mix of phase 3,
+   denoise on), their p50; predict_batch of the 8 equal to predict_clip of
+   each within 1e-5; 2 requests against the CPU's plain path (the same
+   label, probabilities within 1e-3); predict_stream through the vote and
+   through the MLP over a 70 s clip (windows/s over 7 passes: median, min,
+   max), and over an 8 s clip against the CPU; then the port's HTTP
+   service in-process (serve(..., ensemble=True, batch_window_ms=5)):
+   /healthz, 8 concurrent /predict?model=ensemble beside one
+   /stream?model=ensemble, each answer equal to the direct call, and
+   requests/s over 12 more bursts of 8 (median, min, max a burst).  The
+   HTTP path's launches are counted from its first request to its last,
+   not over the server's warmup.
+8. Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
 
-Each of the paths 3-5 runs with every launch count set to 0 just before it
-and read just after, and fails if a kernel it uses never launched.
+Phase 2 also holds the kernels at the stream paths' shapes: the vote's
+segment, one [1, 2**20] buffer, through the gate and the mel mode without
+the tuning tail (as the sequence featurizer runs it), and the MLP stream's
+windows, [64, 48128], through the stats mode and chroma_stats.
+
+Each of the paths 3-5 and 7 runs with every launch count set to 0 just
+before it and read just after, and fails if a kernel it uses never
+launched.
 
 Any failed check raises, so the exit code is non-zero and no result line is
 printed.  Without a CUDA GPU it exits with code 1 at once.
@@ -49,6 +72,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -66,6 +90,10 @@ KERNELS = {  # kernel (mode) -> (source, the TPU kernel it replaces)
                       "stutter_tpu/ops/pallas_denoise.py:265"),
 }
 N_CORPUS, CLASSES = 905, ("block", "fluent", "repetition")
+QUINT = {"cnn": 0.2, "cnn_bilstm": 0.15, "transformer": 0.2, "transformer_lr1e3": 0.2,
+         "transformer_mix4_lr1e3": 0.25}  # member -> vote weight
+REQUEST_S = (1.5, 3, 3, 3, 3, 5, 6, 10)  # the request mix (s)
+STREAM_PASSES, HTTP_BURSTS = 7, 12  # timed passes over the 70 s stream; bursts of 8 requests
 # one H100 SXM at 700 W (its datasheet peak rates): HBM bytes/s,
 # FP32 FLOP/s outside the tensor cores
 HBM_RATE, FP32_RATE = 3.35e12, 67e12
@@ -223,10 +251,12 @@ def compare_spectromel(rng, dev, B: int, N: int, length: int, timed: bool):
     return res, (p, tb, lengths)
 
 
-def compare_spectromel_mel(rng, dev, B: int, N: int) -> dict:
-    """The mel-output mode at the 286-dim variant's geometry (n_fft 512, hop
-    256): clip lengths from N / 4 to N, the last clip silent (one clip of
-    N - 1000 samples at B=1)."""
+def compare_spectromel_mel(rng, dev, B: int, N: int, n_fft: int = 512, hop: int = 256,
+                           with_tuning: bool = True) -> dict:
+    """The mel-output mode, by default at the 286-dim variant's geometry
+    (n_fft 512, hop 256): clip lengths from N / 4 to N, the last clip
+    silent (one clip of N - 1000 samples at B=1).  with_tuning=False skips
+    the tail, as the sequence featurizer does (n_fft 2048, hop 512)."""
     import torch
 
     from stutter_tpu_torch.ops.chroma import estimate_tuning_bin
@@ -241,29 +271,36 @@ def compare_spectromel_mel(rng, dev, B: int, N: int) -> dict:
     for b, n in enumerate(lens):
         audio[b, n:] = 0
     lengths = torch.from_numpy(lens).to(dev)
-    kw = dict(n_fft=512, hop_length=256, with_stats=False)
+    kw = dict(n_fft=n_fft, hop_length=hop, with_stats=False, with_tuning=with_tuning)
     p, m, tb = spectromel(audio, lengths, **kw)
     pp, mp, tbp = spectromel_plain(audio, lengths, **kw)
     torch.cuda.synchronize()
-    res = {"B": B, "N": N, "power_rel_err": float((p - pp).abs().max() / pp.abs().max()),
+    res = {"B": B, "N": N, "n_fft": n_fft, "hop": hop, "with_tuning": with_tuning,
+           "power_rel_err": float((p - pp).abs().max() / pp.abs().max()),
            "mel_rel_err": float((m - mp).abs().max() / mp.abs().max()),
-           "mel_max_abs_err": float((m - mp).abs().max()),
-           "tb_equal_to_own_power": bool(torch.equal(tb, estimate_tuning_bin(p, SR, 512))),
-           "tb_agree_with_plain": int((tb == tbp).sum()), "tb_last": int(tb[-1])}
+           "mel_max_abs_err": float((m - mp).abs().max())}
     check(torch.isfinite(m).all().item(), "spectromel mel not finite")
     check(res["power_rel_err"] < 1e-5, f"spectromel mel mode power rel err {res}")
     check(res["mel_rel_err"] < 1e-4, f"spectromel mel mode mel rel err {res}")
-    check(res["tb_equal_to_own_power"] and (B == 1 or res["tb_last"] == 50),
-          f"spectromel mel mode tuning bin != plain estimate on its power: {res}")
+    if with_tuning:
+        res.update(tb_equal_to_own_power=bool(torch.equal(tb, estimate_tuning_bin(p, SR, n_fft))),
+                   tb_agree_with_plain=int((tb == tbp).sum()), tb_last=int(tb[-1]))
+        check(res["tb_equal_to_own_power"] and (B == 1 or res["tb_last"] == 50),
+              f"spectromel mel mode tuning bin != plain estimate on its power: {res}")
+    else:
+        check(tb is None and tbp is None, "spectromel without tuning returned a tuning bin")
     T, K = p.shape[1:]
-    # power, mel and tuning bin out; FFT, |.|^2 and the sparse mel
-    res.update(bound(4 * (B * N + B + B * T * K + B * T * 128 + B),
-                     fft_flops(B * T, 512) + B * T * (3 * K + 2 * mel_nonzeros(512))))
+    # power, mel (and the tuning bin) out; FFT, |.|^2 and the sparse mel
+    res.update(bound(4 * (B * N + B + B * T * K + B * T * 128 + B * with_tuning),
+                     fft_flops(B * T, n_fft) + B * T * (3 * K + 2 * mel_nonzeros(n_fft))))
     res["ms"] = time_ms(lambda: spectromel(audio, lengths, **kw))
     res["plain_ms"] = time_ms(lambda: spectromel_plain(audio, lengths, **kw))
     res["device_ms"] = device_ms(lambda: spectromel(audio, lengths, **kw))
-    res["tail"] = {"ms": res["device_ms"]["tuning_tail"], **tail_numbers(p, 512)}
-    framed = frame(audio, 512, 256) * hann(512, dev)
+    if with_tuning:
+        res["tail"] = {"ms": res["device_ms"]["tuning_tail"], **tail_numbers(p, n_fft)}
+    else:
+        check("tuning_tail" not in res["device_ms"], f"the tail ran: {res['device_ms']}")
+    framed = frame(audio, n_fft, hop) * hann(n_fft, dev)
     res["stft_library_ms"] = stft_library_ms(framed)
     return res
 
@@ -315,7 +352,7 @@ def compare_chroma_stats(p, tb, lengths) -> dict:
     check(err < 1e-5, f"chroma_stats err {err}")
     B, T, K = p.shape
     # power, tuning bin and n_valid in, [B, 24] out; the 12-row projection
-    return {"B": B, "max_err": err, "cluster": cluster_size(B, T),
+    return {"B": B, "shape": [B, T, K], "max_err": err, "cluster": cluster_size(B, T),
             **bound(4 * (B * T * K + 2 * B + 24 * B), B * T * 2 * K * 12),
             "ms": time_ms(lambda: chroma_stats(p, tb, n_valid)),
             "plain_ms": time_ms(lambda: chroma_stats_plain(p, tb, n_valid)),
@@ -501,6 +538,221 @@ def serve_requests(rng, dev, out_dir: str, cfg, kernels, cpu_denoise: bool) -> d
             "cuda_vs_cpu_max_proba_diff": diff}
 
 
+def write_quint(rng, out_dir: str, dev) -> None:
+    """The production quint at its published widths in the JAX package's
+    files, via the port: random weights at each head's init scales from
+    `rng`, each kind's normalization stats from 16 clips' frames, and
+    ensemble.json."""
+    from stutter_tpu_torch.train.seq_pipeline import ARCHS, persist_seq_head
+    from stutter_tpu_torch.train.seq_trainer import prepare_sequence_dataset, standardize_sequences
+
+    clips = list(structured_clips(rng, 16, 3 * SR))
+    norms = {kind: standardize_sequences(*prepare_sequence_dataset(clips, kind, device=dev))[1:]
+             for kind in ("logmel", "mfcc_deltas")}
+    for arch in QUINT:
+        spec = ARCHS[arch]
+        persist_seq_head(out_dir, arch, spec["init_fn"](rng, **spec["init_kwargs"](len(CLASSES))),
+                         *norms[spec["kind"]], list(CLASSES))
+    with open(os.path.join(out_dir, "ensemble.json"), "w") as f:
+        json.dump({"weights": QUINT, "classes": list(CLASSES)}, f)
+
+
+def proba_diff(a: dict, b: dict) -> float:
+    return max(abs(a["proba"][c] - b["proba"][c]) for c in CLASSES)
+
+
+def check_answer(r: dict, what: str) -> None:
+    p = np.array([r["proba"][c] for c in CLASSES])
+    check(r["label"] in CLASSES and np.isfinite(p).all() and abs(p.sum() - 1) < 1e-5,
+          f"{what}: bad answer {r}")
+
+
+def spread(values: list) -> dict:
+    return {"median": statistics.median(values), "min": min(values), "max": max(values),
+            "n": len(values)}
+
+
+def stream_phase(pred, y, kernels, what: str, passes: int = STREAM_PASSES) -> dict:
+    """One warm pass of predict_stream over `y`, then `passes` timed ones,
+    the first of them counted: windows/s of each pass (median, min, max),
+    the launches of one pass, and the geometry of the windows."""
+    import torch
+
+    pred.predict_stream(y, SR)
+    torch.cuda.synchronize()
+    rates = []
+    for i in range(passes):
+        if i == 0:
+            launch_counts(reset=True)
+        t0 = time.perf_counter()
+        wins = pred.predict_stream(y, SR)
+        rates.append(len(wins) / (time.perf_counter() - t0))
+        if i == 0:
+            launches = launch_counts(reset=True)
+    check_launched(launches, kernels, what)
+    starts = list(range(0, len(y) - 24064, SR))  # 3 s windows (48128 samples), 1 s hop
+    check(len(wins) == len(starts), f"{what}: {len(wins)} windows for {len(starts)} starts")
+    for k, w in enumerate(wins):
+        check_answer(w, what)
+        check(abs(w["start_s"] - k) <= 256 / SR + 1e-9, f"{what}: window {k} starts at {w}")
+    return {"windows": len(wins), "windows_per_s": spread(rates), "launches_one_pass": launches}
+
+
+def http_phase(dev, out_dir: str, clips, direct: list, stream_clip, stream_direct) -> dict:
+    """The port's HTTP service in-process on a free port, micro-batching on
+    (5 ms): /healthz; 8 concurrent /predict?model=ensemble beside one
+    /stream?model=ensemble, each answer equal to the direct call; then
+    requests/s over HTTP_BURSTS bursts of 8.  The launch counts are set to
+    0 after the server's warmup, just before the first request, and read
+    just after the last."""
+    import concurrent.futures
+    import urllib.request
+
+    from stutter_tpu_torch.infer import EnsemblePredictor
+    from stutter_tpu_torch.io.wav import write_wav
+    from stutter_tpu_torch.serve import serve
+
+    def wav_bytes(y):
+        path = os.path.join(out_dir, "upload.wav")
+        write_wav(path, y, SR, subtype="FLOAT")  # the samples exactly
+        with open(path, "rb") as f:
+            return f.read()
+
+    def post(base, path, data):
+        req = urllib.request.Request(base + path, data=data, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return json.loads(resp.read())
+
+    t0 = time.perf_counter()
+    httpd = serve(out_dir, port=0, ensemble=True, batch_window_ms=5.0, device=str(dev))
+    start_s = time.perf_counter() - t0
+    uploads = [wav_bytes(y) for y in clips]
+    stream_upload = wav_bytes(stream_clip)
+    sizes = []
+    batch = EnsemblePredictor.predict_batch
+
+    def counted(self, clips, *a, **k):
+        sizes.append(len(clips))
+        return batch(self, clips, *a, **k)
+
+    EnsemblePredictor.predict_batch = counted
+    pool = concurrent.futures.ThreadPoolExecutor(len(uploads) + 1)
+    try:
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{httpd.server_port}"
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        check(health["models"] == ["ensemble", "mlp"] and health["classes"] == list(CLASSES),
+              f"healthz {health}")
+        launch_counts(reset=True)
+        stream = pool.submit(post, base, "/stream?model=ensemble", stream_upload)
+        futs = [pool.submit(post, base, "/predict?model=ensemble", u) for u in uploads]
+        answers = [f.result() for f in futs]
+        wins = stream.result()
+        for a, d in zip(answers, direct):
+            check(a["label"] == d["label"] and proba_diff(a, d) < 1e-5,
+                  f"http answer {a} != direct {d}")
+        check(len(wins) == len(stream_direct) and all(
+            w["start_s"] == d["start_s"] and w["label"] == d["label"] and proba_diff(w, d) < 1e-5
+            for w, d in zip(wins, stream_direct)), "http /stream != direct predict_stream")
+        first_sizes = list(sizes)
+        rates = []
+        for _ in range(HTTP_BURSTS):
+            t0 = time.perf_counter()
+            for f in [pool.submit(post, base, "/predict?model=ensemble", u) for u in uploads]:
+                check_answer(f.result(), "http burst")
+            rates.append(len(uploads) / (time.perf_counter() - t0))
+        launches = launch_counts(reset=True)
+    finally:
+        EnsemblePredictor.predict_batch = batch
+        httpd.shutdown()
+        httpd.server_close()
+        pool.shutdown()
+    return {"server_start_s": start_s, "requests_per_s": spread(rates), "launches": launches,
+            "batch_sizes_first_burst": first_sizes, "batch_sizes_bursts": sizes[len(first_sizes):]}
+
+
+def headline_phase(rng, dev, out_dir: str) -> dict:
+    """Phase 7: the quint behind EnsemblePredictor on the card, per clip,
+    per batch, over streams and behind the HTTP service."""
+    import torch
+
+    from stutter_tpu_torch.infer import EnsemblePredictor, Predictor
+
+    write_quint(rng, out_dir, dev)
+    t0 = time.perf_counter()
+    ens = EnsemblePredictor.load(out_dir, device=dev)
+    ens.warmup()
+    res = {"load_and_warmup_s": time.perf_counter() - t0}
+    clips = [structured_clips(rng, 1, int(d * SR))[0] for d in REQUEST_S]
+
+    launch_counts(reset=True)
+    latencies, direct = [], []
+    for y in clips:
+        t0 = time.perf_counter()
+        direct.append(ens.predict_clip(y))
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    res["launches_predict_clip"] = launch_counts(reset=True)
+    check_launched(res["launches_predict_clip"], ["spectral_gate", "spectromel_mel"], "ensemble")
+    for r in direct:
+        check_answer(r, "ensemble predict_clip")
+        check(sorted(r["members"]) == sorted(QUINT), f"members {sorted(r['members'])}")
+    res.update(p50_ms=statistics.median(latencies), latencies_ms=latencies,
+               labels=[r["label"] for r in direct])
+
+    # the first pass at B=8 builds the library's per-shape plans, the rest
+    # reuse them
+    batch_ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = ens.predict_batch(clips)
+        batch_ms.append((time.perf_counter() - t0) * 1e3 / len(clips))
+    res["launches_predict_batch"] = launch_counts(reset=True)
+    check_launched(res["launches_predict_batch"], ["spectral_gate", "spectromel_mel"],
+                   "ensemble predict_batch")
+    res.update(batch_ms_per_clip=statistics.median(batch_ms[1:]),
+               batch_ms_per_clip_first=batch_ms[0])
+    res["batch_vs_clip_max_diff"] = max(proba_diff(a, b) for a, b in zip(batch, direct))
+    check(res["batch_vs_clip_max_diff"] < 1e-5 and all(
+        a["label"] == b["label"] for a, b in zip(batch, direct)),
+        f"predict_batch != predict_clip: {res['batch_vs_clip_max_diff']}")
+
+    cpu = EnsemblePredictor.load(out_dir, device="cpu")
+    res["cuda_vs_cpu_max_proba_diff"] = 0.0
+    for y, d in zip(clips[1:3], direct[1:3]):
+        c = cpu.predict_clip(y)
+        res["cuda_vs_cpu_max_proba_diff"] = max(res["cuda_vs_cpu_max_proba_diff"], proba_diff(d, c))
+        check(d["label"] == c["label"] and proba_diff(d, c) < 1e-3, f"cuda vs cpu: {d} {c}")
+
+    # the streams: 70 s crosses a segment boundary (1,000,448 samples of
+    # window starts a segment), then 8 s in 96,256-sample segments vs the CPU
+    mlp = Predictor.load(out_dir, device=dev)
+    long = structured_clips(rng, 1, 70 * SR)[0]
+    res["stream_vote"] = stream_phase(ens, long, ["spectral_gate", "spectromel_mel"],
+                                      "ensemble stream")
+    res["stream_mlp"] = stream_phase(mlp, long, ["spectromel", "chroma_stats"], "mlp stream")
+    short = structured_clips(rng, 1, 8 * SR)[0]
+    res["stream_cuda_vs_cpu_max_proba_diff"] = {}
+    for name, (g, c) in {"vote": (ens, cpu), "mlp": (mlp, Predictor.load(out_dir, device="cpu"))
+                         }.items():
+        a, b = g.predict_stream(short, SR, seg_samples=1 << 16), c.predict_stream(
+            short, SR, seg_samples=1 << 16)
+        diff = max(proba_diff(x, z) for x, z in zip(a, b))
+        check(len(a) == len(b) == 7 and all(x["start_s"] == z["start_s"] and x["label"] == z[
+            "label"] for x, z in zip(a, b)) and diff < 1e-3, f"{name} stream cuda vs cpu {diff}")
+        res["stream_cuda_vs_cpu_max_proba_diff"][name] = diff
+    launch_counts(reset=True)
+
+    stream_clip = structured_clips(rng, 1, 12 * SR)[0]
+    stream_direct = ens.predict_stream(stream_clip, SR)
+    res["http"] = http_phase(dev, out_dir, clips, direct, stream_clip, stream_direct)
+    res["launches_http"] = res["http"].pop("launches")
+    check_launched(res["launches_http"], ["spectral_gate", "spectromel_mel"], "http")
+    res["profile_request"] = device_profile(lambda: ens.predict_clip(clips[1]))
+    return res
+
+
 def corpus_clip(rng, n: int, sr: int) -> np.ndarray:
     """A recording-like clip: a background noise floor that never stops, and
     one to three partials, gated on and off in a third of the clips."""
@@ -668,15 +920,29 @@ def main() -> int:
     mel1 = compare_spectromel_mel(rng, dev, 1, 49152)
     # its own generator: the later phases draw the same data as before it was added
     over = compare_tail_over_capacity(np.random.RandomState(1), dev)
+    # the stream paths' shapes (their own generator too): the vote's segment
+    # through the gate and the mel mode without the tail, the MLP stream's
+    # windows through the stats mode and chroma_stats
+    srng = np.random.RandomState(2)
+    gt_seg = compare_gate(srng, dev, 1, 1 << 20, timed=True)
+    mel_seg = compare_spectromel_mel(srng, dev, 1, 1 << 20, n_fft=2048, hop=512,
+                                     with_tuning=False)
+    sm_win, kernel_out = compare_spectromel(srng, dev, 64, 48128, 48128, timed=True)
+    cs_win = compare_chroma_stats(*kernel_out)
+    del kernel_out
     for name, res in (("tuning_tail over capacity 10s", over), ("spectromel 3s", sm), ("chroma_stats 3s", cs), ("spectral_gate test", gt_small),
                       ("spectral_gate 3s", gt), ("spectromel 10s", sm10),
                       ("chroma_stats 10s", cs10), ("spectral_gate 10s", gt10),
                       ("spectromel_mel 3s", mel), ("spectromel_mel 10s", mel10),
                       ("spectromel request", sm1), ("chroma_stats request", cs1),
-                      ("spectral_gate request", gt1), ("spectromel_mel request", mel1)):
+                      ("spectral_gate request", gt1), ("spectromel_mel request", mel1),
+                      ("spectral_gate stream segment", gt_seg),
+                      ("spectromel_mel stream segment", mel_seg),
+                      ("spectromel stream windows", sm_win),
+                      ("chroma_stats stream windows", cs_win)):
         print(f"{name}: {json.dumps(res)} ({card})")
     for name, res in (("3s", sm), ("10s", sm10), ("request", sm1), ("mel 3s", mel),
-                      ("mel 10s", mel10), ("mel request", mel1)):
+                      ("mel 10s", mel10), ("mel request", mel1), ("stream windows", sm_win)):
         print(f"tuning_tail {name} B={res['B']}: {json.dumps(res['tail'])} ({card})")
 
     with tempfile.TemporaryDirectory() as out_dir:  # phase 3: serving, 149-dim
@@ -708,23 +974,44 @@ def main() -> int:
     print(f"predict_clip p50 {serve286['p50_ms']:.2f} ms over 8 requests, 286-dim, "
           f"prop_decrease 0.8 ({card})")
 
+    with tempfile.TemporaryDirectory() as out_dir:  # phase 7: the headline model
+        write_artifacts(rng, out_dir, dev, PipelineConfig())
+        head = headline_phase(rng, dev, out_dir)
+    profiles["request_ensemble"] = head.pop("profile_request")
+    print(f"headline: {json.dumps(head)}")
+    def mmm(s):
+        return f"{s['median']:.1f} (min {s['min']:.1f}, max {s['max']:.1f}, n {s['n']})"
+
+    print(f"ensemble predict_clip p50 {head['p50_ms']:.2f} ms over 8 requests; predict_batch "
+          f"B=8 {head['batch_ms_per_clip']:.2f} ms a clip; HTTP micro-batched "
+          f"{mmm(head['http']['requests_per_s'])} requests/s a burst of 8; streams over 70 s: "
+          f"vote {mmm(head['stream_vote']['windows_per_s'])}, MLP "
+          f"{mmm(head['stream_mlp']['windows_per_s'])} windows/s a pass ({card})")
+
     profiles.update(profile_batches(rng, dev))  # phase 6: where the device time goes
     for name, prof in profiles.items():
         print(f"profile {name}: {json.dumps(prof)} ({card})")
 
     # launches: each path's count, read just after it ran, summed over the paths
-    paths = [serve["launches"], serve286["launches"], *corpus["launches"].values()]
+    paths = [serve["launches"], serve286["launches"], *corpus["launches"].values(),
+             head["launches_predict_clip"], head["launches_predict_batch"],
+             head["stream_vote"]["launches_one_pass"], head["stream_mlp"]["launches_one_pass"],
+             head["launches_http"]]
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
-    # (name, max abs error, batch-shape result, request-shape result); no
-    # single PyTorch call computes any of these functions: library_ms null
-    rows = [("spectromel", sm["stats_max_err"], sm, sm1),
-            ("spectromel_mel", mel["mel_max_abs_err"], mel, mel1),
-            ("chroma_stats", cs["max_err"], cs, cs1), ("spectral_gate", gt["max_err"], gt, gt1)]
+    # (name, max abs error, batch-shape result, request-shape result,
+    # stream-shape result); no single PyTorch call computes any of these
+    # functions: library_ms null
+    rows = [("spectromel", sm["stats_max_err"], sm, sm1, sm_win),
+            ("spectromel_mel", mel["mel_max_abs_err"], mel, mel1, mel_seg),
+            ("chroma_stats", cs["max_err"], cs, cs1, cs_win),
+            ("spectral_gate", gt["max_err"], gt, gt1, gt_seg)]
     kernels = [{"name": n, "route": "cuda", "source": KERNELS[n][0], "replaces": KERNELS[n][1],
                 "launches": launches[n], "max_abs_err": err, "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": None, "batch": r["B"], "request_ms": q["ms"],
                 "request_plain_ms": q["plain_ms"], "request_bound_ms": q["bound_ms"],
+                "stream_shape": w.get("shape", [w["B"], w.get("N")]), "stream_ms": w["ms"],
+                "stream_plain_ms": w["plain_ms"], "stream_bound_ms": w["bound_ms"],
                 **({"stft_library_ms": r["stft_library_ms"],
                     "request_stft_library_ms": q["stft_library_ms"]}
                    if "stft_library_ms" in r else {}),
@@ -732,7 +1019,7 @@ def main() -> int:
                 # tuning_bin_from_candidates (stutter_tpu/ops/chroma.py:213)
                 **({f"{pre}tuning_tail_{k}": t["tail"][k] for pre, t in (("", r), ("request_", q))
                     for k in ("ms", "plain_ms", "bound_ms")} if "tail" in r else {})}
-               for n, err, r, q in rows]
+               for n, err, r, q, w in rows]
     check(all(k["launches"] > 0 for k in kernels), f"a kernel never launched: {launches}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,8 +4,11 @@ The JAX package `stutter_tpu` stays the reference; this package serves the
 same artifacts on an NVIDIA H100.  Its serving path is the reference's
 upload-and-predict flow: decode -> resample -> spectral-gate denoise ->
 features (149-dim, or the 286-dim variant) -> scaler -> seed-averaged MLP
-softmax; its corpus path denoises the corpus with per-file QC metrics
-(`preprocess`) and builds the feature cache (`extract_corpus`).  The
+softmax, or log-mel / MFCC frames -> the CNN, CNN-BiLSTM and transformer
+heads -> their weighted vote (the headline model), per clip, per
+micro-batch, over a stream of windows or behind the HTTP service; its
+corpus path denoises the corpus with per-file QC metrics (`preprocess`)
+and builds the feature cache (`extract_corpus`).  The
 Pallas kernels of these paths are hand-written CUDA here (`csrc/*.cu`),
 built with nvcc at first use; each has a plain PyTorch version that runs
 for CPU tensors.  Nothing in this package imports JAX or the JAX package:
@@ -18,7 +21,9 @@ Public surface (lazily imported; `import stutter_tpu_torch as stt`):
   stt.extract_features_numpy                                 the front end
   stt.denoise_clips / stt.denoise_batch                      spectral gate
   stt.preprocess / stt.extract_corpus                        the corpus path
-  stt.Predictor                                              serving
+  stt.Predictor / stt.SeqPredictor / stt.EnsemblePredictor  serving: the MLP,
+                                                             a head, the vote
+  stt.serve                                                  the HTTP service
   stt.SeedMLP                                                the MLP head
   stt.StandardScaler / stt.LabelEncoder                      numpy artifacts
 """
@@ -35,6 +40,9 @@ _LAZY = {
     "preprocess": ("stutter_tpu_torch.pipeline", "preprocess"),
     "extract_corpus": ("stutter_tpu_torch.pipeline", "extract_corpus"),
     "Predictor": ("stutter_tpu_torch.infer", "Predictor"),
+    "SeqPredictor": ("stutter_tpu_torch.infer", "SeqPredictor"),
+    "EnsemblePredictor": ("stutter_tpu_torch.infer", "EnsemblePredictor"),
+    "serve": ("stutter_tpu_torch.serve", "serve"),
     "SeedMLP": ("stutter_tpu_torch.models.mlp", "SeedMLP"),
     "StandardScaler": ("stutter_tpu_torch.models.scaler", "StandardScaler"),
     "LabelEncoder": ("stutter_tpu_torch.models.scaler", "LabelEncoder"),

@@ -2,7 +2,9 @@
 
   python -m stutter_tpu_torch preprocess   --root WORKDIR   # clean + QC csv
   python -m stutter_tpu_torch extract      --root WORKDIR [--suffix raw|clean|both]
-  python -m stutter_tpu_torch predict FILE --root WORKDIR [--no-denoise]
+  python -m stutter_tpu_torch predict FILE --root WORKDIR [--no-denoise] [--arch ARCH]
+  python -m stutter_tpu_torch stream  FILE --root WORKDIR [--window S --hop S] [--arch mlp|ensemble]
+  python -m stutter_tpu_torch serve        --root WORKDIR [--port P] [--ensemble] [--seq-arch A]
 
 Every subcommand takes --variant {149,334} (the feature contract; 334 is the
 main.py variant, 286 dims computed), --prop-decrease (the gate's
@@ -38,10 +40,38 @@ def main(argv: list[str] | None = None) -> int:
     p = sub.add_parser("extract", help="(re)generate the feature cache")
     add_common(p)
     p.add_argument("--suffix", default="clean", choices=["raw", "clean", "both"])
+    seq_archs = ["cnn", "cnn_bilstm", "transformer", "transformer_lr1e3",
+                 "transformer_mix4_lr1e3"]
     p = sub.add_parser("predict", help="classify one audio file")
     add_common(p)
     p.add_argument("file")
     p.add_argument("--no-denoise", action="store_true")
+    p.add_argument("--arch", default="mlp", choices=["mlp", *seq_archs, "ensemble"],
+                   help="serving head: the feature-MLP, a trained sequence head, or the "
+                        "weighted-vote ensemble (the headline model)")
+    p = sub.add_parser("stream", help="windowed streaming inference over a long file")
+    add_common(p)
+    p.add_argument("file")
+    p.add_argument("--window", type=float, default=3.0)
+    p.add_argument("--hop", type=float, default=1.0)
+    p.add_argument("--arch", default="mlp", choices=["mlp", "ensemble"])
+    p = sub.add_parser("serve", help="HTTP inference service (POST /predict, /stream)")
+    add_common(p)
+    p.add_argument("--port", type=int, default=8501)
+    p.add_argument("--host", default="127.0.0.1",
+                   help="bind address (0.0.0.0 to expose externally)")
+    p.add_argument("--seq-arch", action="append", default=[], choices=seq_archs,
+                   help="also serve this sequence head (POST /predict?model=<arch>); "
+                        "repeatable")
+    p.add_argument("--ensemble", action="store_true",
+                   help="also serve the weighted-vote ensemble (POST /predict?model=ensemble)")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="skip running every model at every clip bucket before binding")
+    p.add_argument("--batch-window-ms", type=float, default=0.0,
+                   help="micro-batch concurrent /predict requests to batch-capable models "
+                        "(the ensemble) within this window; 0 = off")
+    p.add_argument("--batch-max", type=int, default=8,
+                   help="max clips per micro-batched pass")
     args = ap.parse_args(argv)
 
     from stutter_tpu_torch.config import FEATURES_149, FEATURES_334, PipelineConfig
@@ -68,12 +98,40 @@ def main(argv: list[str] | None = None) -> int:
             X, _, _, ok = extract_corpus(args.root, cfg, sfx, device=args.device)
             extra = "" if ok.all() else f" ({int((~ok).sum())} rows failed decode)"
             print(f"{sfx}: {int(ok.sum())} vectors x {X.shape[1]} dims cached{extra}")
-    else:
-        from stutter_tpu_torch.infer import Predictor
+    elif args.cmd == "predict":
+        from stutter_tpu_torch.infer import EnsemblePredictor, Predictor, SeqPredictor
 
-        pred = Predictor.load(out_dir, cfg, device=args.device)
+        if args.arch == "mlp":
+            pred = Predictor.load(out_dir, cfg, device=args.device)
+        elif args.arch == "ensemble":
+            pred = EnsemblePredictor.load(out_dir, cfg, device=args.device)
+        else:
+            pred = SeqPredictor.load(out_dir, args.arch, cfg, device=args.device)
         pred.denoise_first = not args.no_denoise
         print(json.dumps(pred.predict_file(args.file), indent=2))
+    elif args.cmd == "stream":
+        from stutter_tpu_torch.infer import EnsemblePredictor, Predictor
+        from stutter_tpu_torch.io.decode import decode_audio
+
+        pred = (EnsemblePredictor.load(out_dir, cfg, device=args.device)
+                if args.arch == "ensemble" else Predictor.load(out_dir, cfg, device=args.device))
+        sr = cfg.features.frontend.sample_rate
+        y = decode_audio(args.file, sr, device=args.device)
+        for w in pred.predict_stream(y, sr, window_s=args.window, hop_s=args.hop):
+            print(f'{w["start_s"]:7.2f}-{w["end_s"]:7.2f}s  {w["label"]}')
+    else:
+        from stutter_tpu_torch.serve import serve
+
+        httpd = serve(out_dir, cfg, args.port, warmup=not args.no_warmup, host=args.host,
+                      seq_arches=tuple(args.seq_arch), ensemble=args.ensemble,
+                      batch_window_ms=args.batch_window_ms, batch_max=args.batch_max,
+                      device=args.device)
+        print(f"serving on {args.host}:{args.port} (POST /predict, /stream; GET /healthz)",
+              flush=True)
+        try:
+            httpd.serve_forever()
+        finally:
+            httpd.server_close()
     return 0
 
 

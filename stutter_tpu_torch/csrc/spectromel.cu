@@ -591,7 +591,8 @@ extern "C" int spectromel_launch(const void* audio, const void* lengths, const v
                           (int*)tb, B, T, (hi - lo + 1) / 2, s);
 }
 
-// Mel-output mode: launches 1 and 3.
+// Mel-output mode: launches 1 and 3; launch 1 alone when tb is null (the
+// sequence featurizer, which reads no tuning bin).
 extern "C" int spectromel_mel_launch(const void* audio, const void* lengths, const void* win,
                                      const void* tw, const void* mel_ranges, const void* mel_w,
                                      const void* rtab, void* power, void* mel, void* keys,
@@ -601,7 +602,7 @@ extern "C" int spectromel_mel_launch(const void* audio, const void* lengths, con
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = launch_front(audio, lengths, win, tw, mel_ranges, mel_w, rtab, power, mel,
                                  keys, bins, counts, B, N, n_fft, hop, F, M, lo, hi, c_ln2, 0, s);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || tb == nullptr) return (int)err;
   const int T = N / hop + 1;  // launch_front checked hop
   return (int)launch_tail((const unsigned*)keys, (const unsigned char*)bins, (const int*)counts,
                           (int*)tb, B, T, (hi - lo + 1) / 2, s);

@@ -1,0 +1,92 @@
+"""CNN-BiLSTM head over the MFCC+delta+delta2 stack (counterpart of
+stutter_tpu/models/cnn_bilstm.py).
+
+Two stride-2 width-5 1-D convs (64, 96 channels), a bidirectional LSTM of
+width 96, a masked mean pool and a dense head.  The JAX package scans the
+LSTM step by step (`_lstm_scan`, gates i, f, g, o, +1 on the forget gate);
+a masked step carries h and c through unchanged, and the backward
+direction runs on the time-reversed padded sequence.  With a prefix mask
+(every serving path's) that is a plain LSTM over each clip's valid frames
+in both directions, so here it is `torch.nn.LSTM` over a packed sequence,
+the +1 folded into the forget slice of `bias_ih`.  The valid lengths come
+from the host's clip lengths (`n_valid`), never from a copy off the
+device.  Hidden states at padded steps differ from the scan's (zeros here,
+the carried state there); the pool never reads them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+from stutter_tpu_torch.models.layers import Params, conv1d_same, masked_mean
+
+
+def init_cnn_bilstm(
+    rng: np.random.RandomState,
+    in_dim: int = 60,
+    conv_channels: tuple = (64, 96),
+    lstm_dim: int = 96,
+    n_classes: int = 5,
+) -> dict[str, np.ndarray]:
+    """Random weights in the JAX package's names, shapes and scales (WIO
+    conv kernels, [in, 4H] gate matrices), drawn from a numpy generator."""
+    params = {}
+    c_in = in_dim
+    for i, c_out in enumerate(conv_channels):
+        params[f"conv{i}"] = rng.randn(5, c_in, c_out) * np.sqrt(2.0 / (5 * c_in))
+        params[f"cb{i}"] = np.zeros(c_out)
+        c_in = c_out
+    for d in ("fwd", "bwd"):
+        params[f"lstm_{d}_wx"] = rng.randn(c_in, 4 * lstm_dim) * np.sqrt(1.0 / c_in)
+        params[f"lstm_{d}_wh"] = rng.randn(lstm_dim, 4 * lstm_dim) * np.sqrt(1.0 / lstm_dim)
+        params[f"lstm_{d}_b"] = np.zeros(4 * lstm_dim)
+    params["w_out"] = rng.randn(2 * lstm_dim, n_classes) * np.sqrt(1.0 / (2 * lstm_dim))
+    params["b_out"] = np.zeros(n_classes)
+    return {k: v.astype(np.float32) for k, v in params.items()}
+
+
+class CNNBiLSTM(Params):
+    layouts = {r"conv\d+": (2, 1, 0)}  # WIO -> OIW
+
+    def __init__(self, params: dict[str, torch.Tensor]):
+        super().__init__(params)
+        wh = params["lstm_fwd_wh"]
+        hidden = wh.shape[0]
+        self.lstm = nn.LSTM(params["lstm_fwd_wx"].shape[0], hidden, batch_first=True,
+                            bidirectional=True, device=wh.device)
+        forget = torch.zeros(4 * hidden, device=wh.device)
+        forget[hidden : 2 * hidden] = 1.0
+        with torch.no_grad():
+            for d, sfx in (("fwd", ""), ("bwd", "_reverse")):
+                getattr(self.lstm, f"weight_ih_l0{sfx}").copy_(params[f"lstm_{d}_wx"].T)
+                getattr(self.lstm, f"weight_hh_l0{sfx}").copy_(params[f"lstm_{d}_wh"].T)
+                getattr(self.lstm, f"bias_ih_l0{sfx}").copy_(params[f"lstm_{d}_b"] + forget)
+                getattr(self.lstm, f"bias_hh_l0{sfx}").zero_()
+        self.lstm.requires_grad_(False)
+
+    def hidden_states(self, x: torch.Tensor, n_valid) -> torch.Tensor:
+        """x [B, T, C], n_valid [B] host ints >= 1 (a prefix mask) ->
+        [B, T, 2H] forward | backward hidden states, zero past n_valid."""
+        lengths = torch.as_tensor(np.asarray(n_valid), dtype=torch.int64)
+        packed = pack_padded_sequence(x, lengths, batch_first=True, enforce_sorted=False)
+        h, _ = pad_packed_sequence(self.lstm(packed)[0], batch_first=True,
+                                   total_length=x.shape[1])
+        return h
+
+    def forward(self, feats: torch.Tensor, mask: torch.Tensor, n_valid) -> torch.Tensor:
+        """feats [B, T, D] (standardized MFCC+delta+delta2), mask [B, T], the
+        prefix mask of n_valid [B] valid frames (host ints) -> logits [B, C]."""
+        x = feats
+        nv = np.asarray(n_valid, np.int64)
+        n_conv = sum(1 for k in self.p if k.startswith("conv"))
+        for i in range(n_conv):
+            x = x * mask.to(x.dtype)[:, :, None]
+            x = conv1d_same(x.transpose(1, 2), self.p[f"conv{i}"]).transpose(1, 2)
+            x = torch.relu(x + self.p[f"cb{i}"])
+            mask = mask[:, ::2]
+            nv = (nv + 1) // 2  # valid entries of mask[:, ::2]
+        h = self.hidden_states(x, np.maximum(nv, 1))
+        return masked_mean(h, mask) @ self.p["w_out"] + self.p["b_out"]

@@ -1,0 +1,138 @@
+"""Transformer encoder classifier over log-mel spectrograms (counterpart of
+stutter_tpu/models/transformer.py), for one member or several stacked.
+
+A conv stem of two stride-2 width-5 1-D convs (n_mels -> d -> d, ReLU),
+sinusoidal positions built in float32, pre-LN blocks (4 heads; padded keys
+masked with -1e9; tanh GELU; layer norm with the biased variance and eps
+1e-6), a final layer norm, a masked mean pool and a dense head.
+
+Every weight carries a leading member axis [M, ...], so members of this
+architecture with weights of the same shapes (the quint's three
+transformer recipes) run as one batched forward: the stem as one grouped
+convolution, the blocks as batched products -- the counterpart of the JAX
+package's vmapped stack (stutter_tpu/infer.py:_member_forwards).  A single
+member is M = 1.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from stutter_tpu_torch.models.layers import Params, conv1d_same, masked_mean
+
+N_HEADS = 4
+
+
+def init_transformer(
+    rng: np.random.RandomState,
+    n_mels: int = 128,
+    d_model: int = 96,
+    n_blocks: int = 2,
+    d_ff: int = 192,
+    n_classes: int = 3,
+) -> dict[str, np.ndarray]:
+    """Random weights of one member in the JAX package's names, shapes and
+    scales (WIO stem kernels), drawn from a numpy generator."""
+    p = {"stem0": rng.randn(5, n_mels, d_model) * np.sqrt(2.0 / (5 * n_mels)),
+         "stem0_b": np.zeros(d_model),
+         "stem1": rng.randn(5, d_model, d_model) * np.sqrt(2.0 / (5 * d_model)),
+         "stem1_b": np.zeros(d_model)}
+    s = np.sqrt(1.0 / d_model)
+    for i in range(n_blocks):
+        for w in ("wq", "wk", "wv", "wo"):
+            p[f"blk{i}_{w}"] = rng.randn(d_model, d_model) * s
+        p[f"blk{i}_ln1_g"], p[f"blk{i}_ln1_b"] = np.ones(d_model), np.zeros(d_model)
+        p[f"blk{i}_ff1"] = rng.randn(d_model, d_ff) * np.sqrt(2.0 / d_model)
+        p[f"blk{i}_ff1_b"] = np.zeros(d_ff)
+        p[f"blk{i}_ff2"] = rng.randn(d_ff, d_model) * np.sqrt(1.0 / d_ff)
+        p[f"blk{i}_ff2_b"] = np.zeros(d_model)
+        p[f"blk{i}_ln2_g"], p[f"blk{i}_ln2_b"] = np.ones(d_model), np.zeros(d_model)
+    p["ln_f_g"], p["ln_f_b"] = np.ones(d_model), np.zeros(d_model)
+    p["w_out"] = rng.randn(d_model, n_classes) * s
+    p["b_out"] = np.zeros(n_classes)
+    return {k: v.astype(np.float32) for k, v in p.items()}
+
+
+def sin_pos(T: int, D: int, device) -> torch.Tensor:
+    """Fixed sinusoidal positions [T, D], computed in float32."""
+    pos = torch.arange(T, dtype=torch.float32, device=device)[:, None]
+    half = D // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=device)
+                     / half)
+    ang = pos * freq[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+class Transformer(Params):
+    layouts = {r"stem\d+": (2, 1, 0)}  # WIO -> OIW, after the member axis
+    lead = 1
+
+    @classmethod
+    def from_jax_params(cls, params: dict, device: torch.device | str = "cuda") -> "Transformer":
+        """From one member's JAX weights (M = 1); `stack` joins members."""
+        return super().from_jax_params({k: np.asarray(v, np.float32)[None]
+                                        for k, v in params.items()}, device)
+
+    @classmethod
+    def stack(cls, models: list["Transformer"]) -> "Transformer":
+        """One module running every member of `models`, in that order."""
+        return cls({k: torch.cat([m.p[k] for m in models]) for k in models[0].p})
+
+    @property
+    def n_members(self) -> int:
+        return int(self.p["w_out"].shape[0])
+
+    def to_jax_params(self, member: int = 0) -> dict[str, np.ndarray]:
+        """One member's weights in the JAX package's names and layout."""
+        return {k: v[member] for k, v in super().to_jax_params().items()}
+
+    def _layernorm(self, x, name):
+        g, b = self.p[f"{name}_g"], self.p[f"{name}_b"]
+        return F.layer_norm(x, x.shape[-1:], eps=1e-6) * g[:, None, None] + b[:, None, None]
+
+    def _dense(self, x, name):
+        return torch.matmul(x, self.p[name][:, None])
+
+    def forward(self, spec: torch.Tensor, mask: torch.Tensor, n_valid=None) -> torch.Tensor:
+        """spec [M, B, T, n_mels] (each member's standardized log-mel), mask
+        [B, T] -> logits [M, B, C]; for M = 1 also spec [B, T, n_mels] ->
+        [B, C]."""
+        if spec.ndim == 3:
+            return self.forward(spec[None], mask)[0]
+        M, B = spec.shape[:2]
+        x = spec
+        for i in range(2):
+            x = x * mask.to(x.dtype)[None, :, :, None]
+            w = self.p[f"stem{i}"]  # [M, d, c_in, 5]
+            c_in, d = x.shape[-1], w.shape[1]
+            # the members side by side in channels: one grouped convolution
+            xc = x.permute(1, 0, 3, 2).reshape(B, M * c_in, -1)
+            xc = conv1d_same(xc, w.reshape(M * d, c_in, -1), groups=M)
+            x = xc.reshape(B, M, d, -1).permute(1, 0, 3, 2)  # [M, B, T', d]
+            x = torch.relu(x + self.p[f"stem{i}_b"][:, None, None])
+            mask = mask[:, ::2]
+
+        T, D = x.shape[2:]
+        H, dh = N_HEADS, D // N_HEADS
+        x = x + sin_pos(T, D, x.device)
+        keep = mask[None, :, None, None, :]  # padded keys leave every row
+        n_blocks = sum(1 for k in self.p if k.endswith("_wq"))
+        for i in range(n_blocks):
+            h = self._layernorm(x, f"blk{i}_ln1")
+            q, k, v = (self._dense(h, f"blk{i}_{n}").reshape(M, B, T, H, dh).transpose(2, 3)
+                       for n in ("wq", "wk", "wv"))  # [M, B, H, T, dh]
+            scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dh)
+            att = torch.softmax(torch.where(keep, scores, -1e9), dim=-1)
+            o = torch.matmul(att, v).transpose(2, 3).reshape(M, B, T, D)
+            x = x + self._dense(o, f"blk{i}_wo")
+            h = self._layernorm(x, f"blk{i}_ln2")
+            h = F.gelu(self._dense(h, f"blk{i}_ff1") + self.p[f"blk{i}_ff1_b"][:, None, None],
+                       approximate="tanh")
+            x = x + (self._dense(h, f"blk{i}_ff2") + self.p[f"blk{i}_ff2_b"][:, None, None])
+
+        x = self._layernorm(x, "ln_f")
+        return torch.matmul(masked_mean(x, mask), self.p["w_out"]) + self.p["b_out"][:, None]

@@ -29,12 +29,14 @@ from stutter_tpu_torch.ops.spectromel import spectromel
 DEFAULT_BUCKETS = (24576, 49152, 98304, 163840)
 
 
-def spect_mel_db(audio, lengths, sr, n_fft, hop_length, n_mels, n_chroma=12):
+def spect_mel_db(audio, lengths, sr, n_fft, hop_length, n_mels, n_chroma=12, with_tuning=True):
     """(masked power [B, T, K], mask [B, T], log-mel dB [B, T, M], tuning bin
-    [B]) for the batch, from the spectromel kernel's mel-output mode (a CUDA
-    tensor) or its plain version (a CPU tensor)."""
+    [B], or None with with_tuning=False) for the batch, from the spectromel
+    kernel's mel-output mode (a CUDA tensor) or its plain version (a CPU
+    tensor)."""
     power, mel, tb = spectromel(audio, lengths, sr=sr, n_fft=n_fft, hop_length=hop_length,
-                                n_mels=n_mels, n_chroma=n_chroma, with_stats=False)
+                                n_mels=n_mels, n_chroma=n_chroma, with_stats=False,
+                                with_tuning=with_tuning)
     mask = frame_mask(lengths, hop_length, power.shape[1])
     return power, mask, db_from_mel(mel, mask), tb
 

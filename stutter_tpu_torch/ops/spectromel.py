@@ -7,7 +7,8 @@ batch of zero-padded clips it returns the frame-masked power spectrogram
 MFCC/delta statistics [B, 6, n_mfcc] (rows: mfcc mean/std, delta mean/std,
 delta2 mean/std over valid frames) or (with_stats=False, the mel-output mode
 of the 286-dim variant) the linear mel spectrum [B, T, n_mels], and the
-librosa tuning bin [B].
+librosa tuning bin [B] (with_tuning=True; the mel mode may skip it, as the
+sequence featurizer does, and then returns None for it).
 
 `spectromel` dispatches on where the audio lies: a CPU tensor runs
 `spectromel_plain`; a CUDA tensor launches csrc/spectromel.cu (per frame
@@ -62,14 +63,15 @@ def spectromel_plain(
     n_mfcc: int = 20,
     n_chroma: int = 12,
     with_stats: bool = True,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    with_tuning: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """The plain PyTorch composition the kernel computes (rfft power)."""
     power = power_spectrogram(audio, n_fft, hop_length)
     mask = frame_mask(lengths, hop_length, power.shape[1])
     power = torch.where(mask[:, :, None], power, 0.0)
     if not with_stats:
         mel = torch.matmul(power, mel_filterbank(sr, n_fft, n_mels, power.device).T)
-        return power, mel, estimate_tuning_bin(power, sr, n_fft, n_chroma)
+        return power, mel, estimate_tuning_bin(power, sr, n_fft, n_chroma) if with_tuning else None
     mf = mfcc_from_db(mel_power_to_db(power, mask, sr, n_fft, n_mels), n_mfcc)
     n_valid = 1 + torch.div(lengths, hop_length, rounding_mode="floor")
     d1, d2 = sg_deltas(mf, n_valid, orders=(1, 2))
@@ -93,7 +95,8 @@ def _device_tables(device: str, sr: int, n_fft: int, n_mels: int, n_mfcc: int,
     return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device) for a in host)
 
 
-def _spectromel_cuda(audio, lengths, sr, n_fft, hop, n_mels, n_mfcc, n_chroma, with_stats):
+def _spectromel_cuda(audio, lengths, sr, n_fft, hop, n_mels, n_mfcc, n_chroma, with_stats,
+                     with_tuning):
     B, N = audio.shape
     # the plain version's framing needs hop | N and hop | n_fft; the kernel
     # stages frames 8-byte aligned, so hop >= 2
@@ -120,7 +123,7 @@ def _spectromel_cuda(audio, lengths, sr, n_fft, hop, n_mels, n_mfcc, n_chroma, w
     keys = torch.empty(B, T, cap, dtype=torch.int32, device=dev)
     bins = torch.empty(B, T, cap, dtype=torch.uint8, device=dev)
     counts = torch.empty(B, T, dtype=torch.int32, device=dev)
-    tb = torch.empty(B, dtype=torch.int32, device=dev)
+    tb = torch.empty(B, dtype=torch.int32, device=dev) if with_tuning else None
     # the series factor is rounded to f32 exactly as the plain version's
     # Python-float scalar is
     c_ln2 = n_chroma / math.log(2.0)
@@ -128,8 +131,10 @@ def _spectromel_cuda(audio, lengths, sr, n_fft, hop, n_mels, n_mfcc, n_chroma, w
     stream = _build.stream_of(audio)
     if not with_stats:
         fn = _build.bind("spectromel", "spectromel_mel_launch", 13, 8, 1)
+        # a null tuning-bin pointer skips the tail launch
         ptrs = [t.data_ptr() for t in (audio, lengths, win, tw, ranges, weights, rtab, power,
-                                       mel, keys, bins, counts, tb)]
+                                       mel, keys, bins, counts)] + [tb.data_ptr() if with_tuning
+                                                                    else None]
         rc = fn(*ptrs, B, N, n_fft, hop, tile, n_mels, lo, hi, c_ln2, stream)
         _build.check(rc, "spectromel_mel_launch")
         spectromel.mel_launches += 1
@@ -154,13 +159,18 @@ def spectromel(
     n_mfcc: int = 20,
     n_chroma: int = 12,
     with_stats: bool = True,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    with_tuning: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """[B, N] zero-padded audio (N a multiple of hop) + lengths [B] ->
     (power [B, T, K] frame-masked, stats [B, 6, n_mfcc] or, with
-    with_stats=False, mel [B, T, n_mels], tuning_bin [B] int32).
+    with_stats=False, mel [B, T, n_mels], tuning_bin [B] int32 or, with
+    with_tuning=False (mel mode only: the tail's launch is skipped), None).
 
     A CUDA tensor launches the kernel; a CPU tensor runs the plain version."""
-    args = (audio, lengths, sr, n_fft, hop_length, n_mels, n_mfcc, n_chroma, with_stats)
+    if with_stats and not with_tuning:
+        raise ValueError("with_stats requires with_tuning")
+    args = (audio, lengths, sr, n_fft, hop_length, n_mels, n_mfcc, n_chroma, with_stats,
+            with_tuning)
     if audio.is_cuda:
         return _spectromel_cuda(*args)
     if audio.device.type == "cpu":

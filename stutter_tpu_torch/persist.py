@@ -5,11 +5,15 @@ there serve here unchanged:
   model_mlp_tpu.npz / .json   stacked MLP params (w{i}, b{i}) + meta
   scaler_after.npz            StandardScaler arrays
   label_encoder.json          {"classes": [...]}
+  model_<arch>.npz            a sequence head's params (flattened names)
+  model_<arch>_norm.npz       its per-feature mean / std
+  model_<arch>.json           {"arch", "classes", "kind"}
 """
 
 from __future__ import annotations
 
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -17,6 +21,39 @@ import torch
 
 from stutter_tpu_torch.models.mlp import SeedMLP
 from stutter_tpu_torch.models.scaler import LabelEncoder, StandardScaler
+
+
+def _flatten_params(params: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    flat = {}
+    for k, v in params.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            flat.update(_flatten_params(v, key + "/"))
+        else:
+            flat[key] = np.asarray(v)
+    return flat
+
+
+def _unflatten_params(flat: dict) -> dict:
+    tree: dict = {}
+    for key, v in flat.items():
+        parts = key.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def load_seq_head(output_dir: str, arch: str) -> tuple[dict, np.ndarray, np.ndarray, dict]:
+    """The model_<arch>.npz / _norm.npz / .json trio -> (params as numpy in
+    the JAX layout, mean, std, metadata)."""
+    with np.load(os.path.join(output_dir, f"model_{arch}.npz")) as z:
+        params = _unflatten_params(dict(z))
+    with np.load(os.path.join(output_dir, f"model_{arch}_norm.npz")) as z:
+        mean, std = z["mean"], z["std"]
+    meta = json.loads(Path(output_dir, f"model_{arch}.json").read_text())
+    return params, mean, std, meta
 
 
 def save_mlp(path: str | Path, model: SeedMLP) -> None:

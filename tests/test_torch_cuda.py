@@ -282,3 +282,94 @@ def test_chroma_stats_cluster_shapes_match_plain(cuda, B, T, K, n_valid):
         if v == 0:
             assert not got[b].any()
     assert torch.equal(got, chroma_stats(p, tb, nv, n_fft=2 * (K - 1)))  # run to run
+
+
+def test_mel_mode_without_tuning_skips_only_the_tail(cuda):
+    """with_tuning=False (the sequence featurizer): the same power and mel
+    bit for bit, no tuning bin, one mel-mode launch."""
+    from stutter_tpu_torch.ops.spectromel import spectromel
+
+    audio = torch.from_numpy(_clips(11, 3, 49152)).to(cuda)
+    le = torch.tensor([49152, 30000, 49152], dtype=torch.int32, device=cuda)
+    audio[1, 30000:] = 0
+    p, m, tb = spectromel(audio, le, with_stats=False)
+    before = spectromel.mel_launches
+    p2, m2, tb2 = spectromel(audio, le, with_stats=False, with_tuning=False)
+    assert spectromel.mel_launches == before + 1 and tb2 is None and tb.shape == (3,)
+    assert torch.equal(p, p2) and torch.equal(m, m2)
+
+
+def test_kernels_at_the_stream_shapes(cuda):
+    """The ensemble stream's segment, one [1, 2**20] buffer (4,334 gate
+    chunks, 2,049 frames), through the gate and the mel mode; the MLP
+    stream's windows, [64, 48128] (95 frames), through the stats mode and
+    chroma_stats: each within its kernel bound of its plain version."""
+    from stutter_tpu_torch.denoise import denoise_batch
+    from stutter_tpu_torch.ops.chroma import estimate_tuning_bin
+    from stutter_tpu_torch.ops.chroma_stats import chroma_stats, chroma_stats_plain
+    from stutter_tpu_torch.ops.spectral_gate import spectral_gate_plain
+    from stutter_tpu_torch.ops.spectromel import spectromel, spectromel_plain
+
+    seg = torch.from_numpy(_clips(12, 2, 1 << 20)[:1]).to(cuda)
+    le = torch.tensor([1_000_000], dtype=torch.int32, device=cuda)
+    seg[:, 1_000_000:] = 0
+    got = denoise_batch(seg, le, DenoiseConfig())
+    ref = denoise_batch(seg, le, DenoiseConfig(), gate=spectral_gate_plain)
+    g, r = got - got.mean(), ref - ref.mean()
+    assert float((got - ref).abs().max()) < 0.03
+    assert float((g * r).sum() / (g.norm() * r.norm())) > 0.9999
+    p, m, tb = spectromel(got, le, with_stats=False, with_tuning=False)
+    pp, mp, _ = spectromel_plain(got, le, with_stats=False, with_tuning=False)
+    assert tb is None and m.shape == (1, 2049, 128)
+    assert float((p - pp).abs().max() / pp.abs().max()) < 1e-5
+    assert float((m - mp).abs().max() / mp.abs().max()) < 1e-4
+
+    win = torch.from_numpy(_clips(13, 64, 48128)).to(cuda)
+    lw = torch.full((64,), 48128, dtype=torch.int32, device=cuda)
+    lw[-3:] = torch.tensor([47000, 20000, 1], dtype=torch.int32, device=cuda)
+    for b, n in enumerate(lw.tolist()):
+        win[b, n:] = 0
+    p, st, tb = spectromel(win, lw)
+    pp, stp, _ = spectromel_plain(win, lw)
+    assert p.shape == (64, 95, 1025)
+    assert float((p - pp).abs().max() / pp.abs().max()) < 1e-5
+    err = (st - stp).abs()
+    assert float(err.max()) < 2e-3 and float(err.mean()) < 2e-4
+    assert torch.equal(tb, estimate_tuning_bin(p, 16000, 2048))
+    nv = 1 + lw // 512
+    assert float((chroma_stats(p, tb, nv) - chroma_stats_plain(p, tb, nv)).abs().max()) < 1e-5
+
+
+def test_heads_vote_and_streams_on_the_card_match_the_cpu(cuda, tmp_path):
+    """The quint at its published widths, random weights from a numpy seed:
+    EnsemblePredictor on the card against the CPU's plain path (the same
+    label, probabilities within 1e-3), predict_batch against predict_clip,
+    the stream through the vote."""
+    import json
+
+    from stutter_tpu_torch.infer import EnsemblePredictor
+    from stutter_tpu_torch.train.seq_pipeline import ARCHS, persist_seq_head
+
+    rng = np.random.RandomState(14)
+    archs = ["cnn", "cnn_bilstm", "transformer", "transformer_lr1e3", "transformer_mix4_lr1e3"]
+    for a in archs:
+        D = 60 if a == "cnn_bilstm" else 128
+        persist_seq_head(str(tmp_path), a, ARCHS[a]["init_fn"](rng, **ARCHS[a]["init_kwargs"](3)),
+                         rng.randn(D).astype(np.float32) - (30 if D == 128 else 0),
+                         1 + 10 * rng.rand(D).astype(np.float32), ["a", "b", "c"])
+    (tmp_path / "ensemble.json").write_text(json.dumps(
+        {"weights": {a: 0.2 for a in archs}, "classes": ["a", "b", "c"]}))
+    gpu = EnsemblePredictor.load(str(tmp_path), device=cuda)
+    cpu = EnsemblePredictor.load(str(tmp_path), device="cpu")
+    clips = [c[:n] for c, n in zip(_clips(15, 3, 49152), (49152, 20000, 9000))]
+    batch = gpu.predict_batch(clips)
+    for y, b in zip(clips, batch):
+        a, c = gpu.predict_clip(y), cpu.predict_clip(y)
+        assert a["label"] == c["label"] == b["label"]
+        assert max(abs(a["proba"][k] - c["proba"][k]) for k in "abc") < 1e-3
+        assert max(abs(a["proba"][k] - b["proba"][k]) for k in "abc") < 1e-5
+    y = _clips(16, 2, 16000 * 5)[0]  # the last clip of _clips is silent
+    w, wc = gpu.predict_stream(y, window_s=1.0, hop_s=1.0), cpu.predict_stream(y, window_s=1.0,
+                                                                              hop_s=1.0)
+    assert [x["start_s"] for x in w] == [x["start_s"] for x in wc]
+    assert max(abs(x["proba"][k] - z["proba"][k]) for x, z in zip(w, wc) for k in "abc") < 1e-3

@@ -2,7 +2,8 @@
 chip_smoke.py, imports the JAX package or JAX, and each copy the port keeps
 of a JAX-package module (config, data, cache, the CSV writer, io.wav,
 io.mp3, the decoder registry, the C++ WAV loader, ops.filterbanks,
-utils.profiling) gives what the original gives."""
+utils.profiling, serve's upload sniffing and cap, persist's parameter
+flattening) gives what the original gives."""
 
 import ast
 import dataclasses
@@ -75,7 +76,10 @@ assert abs(sum(r["proba"].values()) - 1) < 1e-5, r
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("stutter_tpu", "jax", "jaxlib"))
 assert not bad, bad
-assert len(names) >= 30, names
+assert len(names) >= 38, names
+need = {'serve', 'train.seq_pipeline', 'train.seq_trainer', 'models.cnn', 'models.cnn_bilstm',
+        'models.transformer'}
+assert {'stutter_tpu_torch.' + n for n in need} <= set(names), names
 print(len(names))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -227,3 +231,27 @@ def test_stage_timer_reports_like_the_jax_package():
         t.totals.update({"decode": 1.5, "extract": 0.25})
         t.counts.update({"decode": 3, "extract": 1})
     assert ours.report() == theirs.report()
+
+
+@pytest.mark.parametrize("prefix", [b"RIFF\x24\x08\x00\x00WAVE", b"ID3\x04\x00", b"\xff\xfb\x90\x00",
+                                    b"\xff\xe3", b"\x00\x00\x00\x20ftypM4A ", b"OggS\x00",
+                                    b"", b"\xff", b"RIF"])
+def test_upload_sniffing_and_cap_equal_the_jax_service(prefix):
+    from stutter_tpu import serve as jserve
+    from stutter_tpu_torch import serve
+
+    assert serve._sniff_suffix(prefix) == jserve._sniff_suffix(prefix)
+    assert serve.MAX_UPLOAD_BYTES == jserve.MAX_UPLOAD_BYTES
+    assert serve._INDEX_HTML.replace("stutter_tpu_torch", "stutter_tpu") == jserve._INDEX_HTML
+
+
+def test_param_flattening_equals_the_jax_package():
+    from stutter_tpu import persist as jpersist
+    from stutter_tpu_torch import persist
+
+    tree = {"w0": np.ones((2, 3)), "blk": {"wq": np.zeros(4), "ln": {"g": np.arange(3.0)}}}
+    flat = persist._flatten_params(tree)
+    assert flat.keys() == jpersist._flatten_params(tree).keys()
+    back, jback = persist._unflatten_params(flat), jpersist._unflatten_params(flat)
+    assert back.keys() == jback.keys() and back["blk"]["ln"].keys() == jback["blk"]["ln"].keys()
+    np.testing.assert_array_equal(back["blk"]["ln"]["g"], tree["blk"]["ln"]["g"])
