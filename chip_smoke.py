@@ -49,14 +49,34 @@
    requests/s over 12 more bursts of 8 (median, min, max a burst).  The
    HTTP path's launches are counted from its first request to its last,
    not over the server's warmup.
-8. Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
+8. Training (its own numpy seed), after phase 7: writes a 905-clip corpus
+   whose class sets the content (steady tones, gated tones, noise bursts;
+   0.5-10 s, ~5 % at 22.05 kHz), runs preprocess, then run_cv
+   (include_host=False) at the published MLPTrainConfig (256-128-64, 8
+   seeds x 5 folds, 200 epochs, batch 128), run_before_after and run_cv at
+   --variant 334, all on the card.  Checks MLP-TPU's CV accuracy >= 90 % at
+   149 and 286 dims and engine A's "after" >= 90 %, every file the JAX
+   package's run_cv and run_before_after write (with its CSV header), and
+   Predictor.load(device="cuda") on the trained artifacts: the 8-request
+   mix (denoise on), then the same clips without denoise against the CPU's
+   plain path (the same labels, probabilities within 1e-3).  Ten
+   GridTrainer steps at full width and G = 40 with fed batch rows and
+   dropout masks equal the CPU's within 1e-4 relative (normwise, per
+   tensor; `step_errors`), with the element that differs most and its
+   gradient at each step on both devices.  Prints run_cv's wall seconds,
+   the CV grid's and the fit's steps/s (from the stage seconds run_cv
+   returns), the card's idle share over a profiled window of CV steps,
+   run_before_after's and the permutation importance's seconds.  Each
+   entry point (preprocess, both run_cv, run_before_after) and the serving
+   of the trained model count their launches apart.
+9. Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
 
 Phase 2 also holds the kernels at the stream paths' shapes: the vote's
 segment, one [1, 2**20] buffer, through the gate and the mel mode without
 the tuning tail (as the sequence featurizer runs it), and the MLP stream's
 windows, [64, 48128], through the stats mode and chroma_stats.
 
-Each of the paths 3-5 and 7 runs with every launch count set to 0 just
+Each of the paths 3-5, 7 and 8 runs with every launch count set to 0 just
 before it and read just after, and fails if a kernel it uses never
 launched.
 
@@ -90,6 +110,7 @@ KERNELS = {  # kernel (mode) -> (source, the TPU kernel it replaces)
                       "stutter_tpu/ops/pallas_denoise.py:265"),
 }
 N_CORPUS, CLASSES = 905, ("block", "fluent", "repetition")
+N_TRAIN = 905  # the training phase's corpus
 QUINT = {"cnn": 0.2, "cnn_bilstm": 0.15, "transformer": 0.2, "transformer_lr1e3": 0.2,
          "transformer_mix4_lr1e3": 0.25}  # member -> vote weight
 REQUEST_S = (1.5, 3, 3, 3, 3, 5, 6, 10)  # the request mix (s)
@@ -429,7 +450,10 @@ def device_profile(fn, reps: int = 3) -> dict:
         wall = (time.perf_counter() - t0) * 1e3 / reps
     by_name: dict[str, list] = {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # kernels and copies only: a user annotation (the optimizer's
+        # `Optimizer.step#Adam.step` range) lies on the device's timeline
+        # too, over the kernels it encloses
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
             continue
         name = re.sub(r"\(anonymous namespace\)::", "", e.name).split("(")[0][:60]
         acc = by_name.setdefault(name, [0.0, 0])
@@ -767,19 +791,35 @@ def corpus_clip(rng, n: int, sr: int) -> np.ndarray:
     return (y + tones).astype(np.float32)
 
 
-def write_corpus(rng, root: str) -> int:
-    """N_CORPUS clips of 0.5-10 s under three class folders, unique stems
-    (the feature cache is keyed by stem), ~5 % at 22.05 kHz; -> seconds of
-    audio written."""
+def train_clip(rng, i: int, n: int, sr: int) -> np.ndarray:
+    """The training corpus's clip i, whose class (i % 3) sets the content
+    over a quiet noise floor: steady tones, the same tones gated on and
+    off, or bursts of noise."""
+    t = np.arange(n) / sr
+    y = rng.randn(n) * rng.uniform(0.005, 0.03)
+    gate = (t % rng.uniform(0.2, 0.6)) < 0.15
+    if i % 3 == 2:
+        return (y + rng.randn(n) * rng.uniform(0.1, 0.3) * gate).astype(np.float32)
+    tones = sum(rng.uniform(0.1, 0.5) * np.sin(2 * np.pi * rng.uniform(150, 1500) * t
+                                               + rng.uniform(0, 2 * np.pi))
+                for _ in range(rng.randint(1, 4)))
+    return (y + tones * (gate if i % 3 == 1 else 1.0)).astype(np.float32)
+
+
+def write_corpus(rng, root: str, n_clips: int,
+                 clip=lambda rng, i, n, sr: corpus_clip(rng, n, sr)) -> int:
+    """n_clips clips of 0.5-10 s under three class folders (clip i in
+    CLASSES[i % 3]), unique stems (the feature cache is keyed by stem), ~5 %
+    at 22.05 kHz; -> seconds of audio written."""
     from stutter_tpu_torch.io.wav import write_wav
 
     total = 0.0
-    for i in range(N_CORPUS):
+    for i in range(n_clips):
         d = os.path.join(root, "segrigated_samples", CLASSES[i % 3])
         os.makedirs(d, exist_ok=True)
         sr = 22050 if rng.rand() < 0.05 else SR
         dur = rng.uniform(0.5, 10.0)
-        write_wav(os.path.join(d, f"clip_{i:04d}.wav"), corpus_clip(rng, int(dur * sr), sr), sr)
+        write_wav(os.path.join(d, f"clip_{i:04d}.wav"), clip(rng, i, int(dur * sr), sr), sr)
         total += dur
     return total
 
@@ -800,7 +840,7 @@ def corpus_phase(rng, dev, root: str) -> dict:
 
     cfgs = {149: PipelineConfig(), 286: PipelineConfig(features=FEATURES_334)}
     t0 = time.perf_counter()
-    seconds = write_corpus(rng, root)
+    seconds = write_corpus(rng, root, N_CORPUS)
     print(f"corpus: {N_CORPUS} clips, {seconds:.0f} s of audio written in "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -873,6 +913,236 @@ def corpus_phase(rng, dev, root: str) -> dict:
     res["sampled_rows_vs_cpu"] = {f"{d}_{s}": v for (d, s), v in errs.items()}
     torch.cuda.synchronize()
     return res
+
+
+# the files the JAX package's run_cv (include_host=False) and
+# run_before_after write on a 3-class corpus without sklearn, and each
+# CSV's header (None: not a CSV)
+CM_HEADER = "," + ",".join(CLASSES)
+RUN_CV_FILES = {
+    "FINAL_PERFORMANCE_TABLE.csv": "Model,Accuracy (%),Precision (%),Recall (%),F1-Score (%)",
+    "permutation_importance_mlp_tpu.csv": "feature,importance,std",
+    "confusion_MLP-TPU.csv": CM_HEADER,
+    **dict.fromkeys(("final_performance.html", "permutation_importance_mlp_tpu.html",
+                     "confusion_matrices.html", "scaler_after.npz", "label_encoder.json",
+                     "model_mlp_tpu.npz", "model_mlp_tpu.json")),
+}
+ENGINE_A_FILES = {
+    "train_test_sizes.csv": "dataset,train_size,test_size",
+    "metrics_summary.csv": "dataset,model,accuracy,test_loss",
+    "metrics_summary.html": None,
+    **{k: v for s in ("before", "after") for k, v in {
+        f"confusion_{s}_MLP-TPU.csv": CM_HEADER,
+        f"class_report_{s}_MLP-TPU.csv": ",precision,recall,f1-score,support",
+        f"auc_{s}.csv": "model,class,auc",
+        f"roc_{s}.csv": "model,class,fpr,tpr,threshold",
+        f"roc_{s}.html": None, f"confusion_{s}.html": None}.items()},
+}
+
+
+def check_files(out_dir: str, files: dict, what: str) -> None:
+    for name, header in files.items():
+        path = os.path.join(out_dir, name)
+        check(os.path.exists(path), f"{what}: {name} not written")
+        if header is not None:
+            with open(path) as f:
+                got = f.readline().rstrip("\n")
+            check(got == header, f"{what}: {name} header {got!r} != {header!r}")
+
+
+def step_errors(a: np.ndarray, b: np.ndarray) -> dict:
+    """The normwise relative error |a - b| / |b| of a trained tensor (the
+    bound), the largest element's error over the tensor's largest value,
+    and how many elements differ by more than 1e-4 of that value.  Element
+    by element, a few Adam steps are ill-conditioned: where an element's
+    loss gradient nearly cancels its weight decay (wd * p), the sum left is
+    of the order of Adam's eps (1e-8), so rounding in the gradient changes
+    the size of the first update, lr * g / (|g| + eps), by a large share
+    (`worst_element` reads it)."""
+    d = np.abs(a - b)
+    return {"rel": float(np.linalg.norm(a - b) / np.linalg.norm(b)),
+            "max_elem_rel": float(d.max() / np.abs(b).max()),
+            "n_elem_over_1e-4": int((d > 1e-4 * np.abs(b).max()).sum()), "n": int(a.size)}
+
+
+ADAM_EPS = 1e-8  # torch.optim.Adam's and optax.adam's default eps
+FED_SCHEDULE = 1000  # the cosine schedule's length in fed_steps
+
+
+def worst_element(card: tuple, cpu: tuple, init: dict, cfg) -> dict:
+    """The trained element whose card value differs most from the CPU's
+    (over its tensor's largest value), from fed_steps' (params, grads) on
+    each device and the initial params: its initial and final values, its
+    loss gradient at every step on both devices beside the largest of its
+    tensor's, and on each device the first step's gradient with the weight
+    decay added (what Adam normalises) and the update it gives,
+    -lr * g / (|g| + eps)."""
+    from stutter_tpu_torch.train.trainer import learning_rate
+
+    (p_card, g_card), (p_cpu, g_cpu) = card, cpu
+    k = max(p_cpu, key=lambda k: np.abs(p_card[k] - p_cpu[k]).max() / np.abs(p_cpu[k]).max())
+    i = np.unravel_index(np.abs(p_card[k] - p_cpu[k]).argmax(), p_cpu[k].shape)
+    p0 = float(init[k][i])
+    out = {"tensor": k, "index": [int(v) for v in i], "init": p0, "card": float(p_card[k][i]),
+           "cpu": float(p_cpu[k][i]), "grad_card": [float(g[k][i]) for g in g_card],
+           "grad_cpu": [float(g[k][i]) for g in g_cpu],
+           "tensor_grad_max": [float(np.abs(g[k]).max()) for g in g_cpu]}
+    for dev, grads in (("card", g_card), ("cpu", g_cpu)):
+        g = float(grads[0][k][i]) + cfg.weight_decay * p0
+        out[f"decayed_grad0_{dev}"] = g
+        out[f"first_update_{dev}"] = -learning_rate(0, FED_SCHEDULE, cfg) * g / (abs(g) + ADAM_EPS)
+    return out
+
+
+def fed_steps(dev, X, y, idx, keeps, seeds, cfg) -> tuple[dict, list[dict]]:
+    """GridTrainer steps from init_grid(seeds) on `dev`, each step's batch
+    rows idx[t] [G, B] of X [G, N, D] / y [G, N] and keep-masks keeps[t] fed
+    -> the params, and each step's loss gradients, as numpy."""
+    import torch
+
+    from stutter_tpu_torch.train.trainer import GridTrainer, init_grid
+
+    G = X.shape[0]
+    tr = GridTrainer(init_grid(seeds, X.shape[-1], cfg, dev), cfg, FED_SCHEDULE)
+    names = [f"w{i}" for i in range(len(tr.weights))] + [f"b{i}" for i in range(len(tr.biases))]
+    rows, grads = np.arange(G)[:, None], []
+    for t in range(len(idx)):
+        tr.step(torch.from_numpy(X[rows, idx[t]]).to(dev), torch.from_numpy(y[rows, idx[t]]).to(dev),
+                torch.ones(G, cfg.batch_size, device=dev),
+                [torch.from_numpy(k).to(dev) for k in keeps[t]])
+        grads.append({k: p.grad.cpu().numpy() for k, p in zip(names, tr.weights + tr.biases)})
+    return {k: v.cpu().numpy() for k, v in tr.params().items()}, grads
+
+
+def training_phase(rng, dev, root: str) -> dict:
+    """Phase 8: preprocess, run_cv, run_before_after and run_cv --variant
+    334 on the card over a corpus whose class sets the content; the trained
+    model served; fed steps against the CPU; a profiled window of steps.
+    Each entry point's launches are counted from just before it to just
+    after it, and the serving of the trained model's apart from them."""
+    import torch
+
+    from stutter_tpu_torch import pipeline
+    from stutter_tpu_torch.config import FEATURES_334, PipelineConfig
+    from stutter_tpu_torch.models.scaler import StandardScaler
+    from stutter_tpu_torch.train import trainer
+    from stutter_tpu_torch.train.trainer import MLPTrainConfig, draw_batch, total_steps
+
+    cfgs = {149: PipelineConfig(), 286: PipelineConfig(features=FEATURES_334)}
+    out_dir = os.path.join(root, cfgs[149].data.output_dir)
+    t0 = time.perf_counter()
+    res = {"clips": N_TRAIN, "audio_s": write_corpus(rng, root, N_TRAIN, train_clip),
+           "write_s": time.perf_counter() - t0, "launches_by_entry": {}}
+    cfg = MLPTrainConfig()
+
+    def counted(name: str, kernels, fn):
+        """fn() with the launch counts set to 0 just before and read just
+        after -> (its result, its wall seconds)."""
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        res["launches_by_entry"][name] = launch_counts(reset=True)
+        check_launched(res["launches_by_entry"][name], kernels, name)
+        return out, s
+
+    def run_cv(dim):
+        kernels = ["spectromel", "chroma_stats"] if dim == 149 else ["spectromel_mel"]
+        cv, s = counted(f"run_cv_{dim}", kernels, lambda: pipeline.run_cv(
+            root, cfgs[dim], include_host=False, device=dev))
+        stages = cv["stage_s"]
+        check({"mlp_cv", "mlp_fit", "mlp_importance", "single_split_MLP-TPU"} <= set(stages),
+              f"run_cv {dim}: stages {stages}")
+        n = sum(len(te) for _, te in cv["folds"])
+        n_cv = max(len(tr) for tr, _ in cv["folds"])
+        res[f"run_cv_{dim}"] = {
+            "s": s, "stage_s": stages, "rows": cv["final_rows"],
+            "cv_steps_per_s": total_steps(cfg, n_cv) / stages["mlp_cv"],
+            "fit_steps_per_s": total_steps(cfg, n) / stages["mlp_fit"]}
+        check(cv["final_rows"][0]["Model"] == "MLP-TPU"
+              and cv["final_rows"][0]["Accuracy (%)"] >= 90,
+              f"run_cv {dim}: MLP-TPU CV accuracy {cv['final_rows']}")
+        check_files(out_dir, RUN_CV_FILES, f"run_cv {dim}")
+
+    _, res["preprocess_s"] = counted("preprocess", ["spectral_gate"],
+                                     lambda: pipeline.preprocess(root, cfgs[149], device=dev))
+    run_cv(149)
+    res["serve"] = serve_trained(rng, dev, out_dir, cfgs[149])
+    ab, s = counted("run_before_after", ["spectromel", "chroma_stats"],
+                    lambda: pipeline.run_before_after(root, cfgs[149], device=dev))
+    res["run_before_after"] = {"s": s, "stage_s": ab["stage_s"], "metrics": ab["metrics"]}
+    after = {m["model"]: m["accuracy"] for m in ab["metrics"] if m["dataset"] == "after"}
+    check(after["MLP-TPU"] >= 90, f"run_before_after: after {ab['metrics']}")
+    check_files(out_dir, ENGINE_A_FILES, "run_before_after")
+    run_cv(286)
+    res["launches"] = {k: sum(c[k] for c in res["launches_by_entry"].values()) for k in KERNELS}
+    check_launched(res["launches"], KERNELS, "training")
+
+    # ten fed steps at full width, G = 40 (the CV grid's shape), card vs CPU
+    X, labels, _, _ = pipeline.extract_corpus(root, cfgs[149], "clean", device=dev)
+    Xs = StandardScaler.fit(X).transform(X).astype(np.float32)
+    y = np.asarray([CLASSES.index(l) for l in labels])
+    G, N = 40, len(Xs) * 4 // 5  # the CV grid: 40 entries of 724 training rows
+    pick = np.stack([rng.choice(len(Xs), N, replace=False) for _ in range(G)])
+    Xg, yg = Xs[pick], y[pick]
+    idx = rng.randint(0, N, (10, G, cfg.batch_size))
+    keeps = [[rng.rand(G, cfg.batch_size, h) < 1 - cfg.dropout for h in cfg.hidden]
+             for _ in range(10)]
+    seeds = [cfg.seed + s % cfg.n_seeds for s in range(G)]
+    on_card = fed_steps(dev, Xg, yg, idx, keeps, seeds, cfg)
+    on_cpu = fed_steps(torch.device("cpu"), Xg, yg, idx, keeps, seeds, cfg)
+    res["fed_steps"] = {k: step_errors(on_card[0][k], v) for k, v in on_cpu[0].items()}
+    init = {k: v.numpy() for k, v in trainer.init_grid(seeds, Xs.shape[1], cfg, "cpu").items()}
+    res["fed_steps_worst_element"] = worst_element(on_card, on_cpu, init, cfg)
+    del on_card, on_cpu
+    check(max(e["rel"] for e in res["fed_steps"].values()) < 1e-4,
+          f"fed steps card vs cpu: {res['fed_steps']}")
+
+    # a profiled window of 20 drawn steps at the CV grid's shape
+    tr = trainer.GridTrainer(trainer.init_grid(seeds, Xs.shape[1], cfg, dev), cfg, 1000)
+    Xd, yd = torch.from_numpy(Xg).to(dev), torch.from_numpy(yg).to(dev)
+    wd = torch.ones(G, N, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    window = 20
+
+    def steps():
+        for _ in range(window):
+            tr.step(*draw_batch(Xd, yd, wd, cfg, gen))
+
+    prof = device_profile(steps)
+    res["profile_steps"] = {**prof, "steps": window, "ms_per_step": prof["wall_ms"] / window,
+                            "launches_per_step": prof["launches"] / window}
+    return res
+
+
+def serve_trained(rng, dev, out_dir: str, cfg) -> dict:
+    """The trained artifacts behind Predictor.load on the card: the
+    8-request mix (REQUEST_S, clips of the training corpus's kinds, denoise
+    on); then the same clips without denoise on the card and on the CPU's
+    plain path: the same labels, probabilities within 1e-3.  (Denoised, the
+    card's gate and the CPU's differ by up to ~1e-2 in a sample, which the
+    features carry.)  Its launches are counted from just before the first
+    request to just after the last."""
+    from stutter_tpu_torch.infer import Predictor
+
+    pred = Predictor.load(out_dir, cfg, device=dev)
+    cpu = Predictor.load(out_dir, cfg, device="cpu")
+    clips = [train_clip(rng, i, int(d * SR), SR) for i, d in enumerate(REQUEST_S)]
+    launch_counts(reset=True)
+    answers = [pred.predict_clip(y) for y in clips]
+    for r in answers:
+        check_answer(r, "trained predict_clip")
+    diff = 0.0
+    for y in clips:
+        a, b = pred.predict_clip(y, denoise=False), cpu.predict_clip(y, denoise=False)
+        diff = max(diff, proba_diff(a, b))
+        check(a["label"] == b["label"] and diff < 1e-3, f"trained model cuda vs cpu: {a} {b}")
+    launches = launch_counts(reset=True)
+    check_launched(launches, ["spectromel", "chroma_stats", "spectral_gate"], "trained model served")
+    return {"launches": launches, "labels": [r["label"] for r in answers],
+            "true": [CLASSES[i % 3] for i in range(len(clips))],
+            "cuda_vs_cpu_max_proba_diff": diff}
 
 
 def main() -> int:
@@ -988,6 +1258,22 @@ def main() -> int:
           f"vote {mmm(head['stream_vote']['windows_per_s'])}, MLP "
           f"{mmm(head['stream_mlp']['windows_per_s'])} windows/s a pass ({card})")
 
+    with tempfile.TemporaryDirectory() as root:  # phase 8: training, its own generator
+        train = training_phase(np.random.RandomState(6), dev, root)
+    print(f"training: {json.dumps(train)}")
+
+    cv149, cv286, prof = train["run_cv_149"], train["run_cv_286"], train["profile_steps"]
+    print(f"training: run_cv {cv149['s']:.1f} s wall at 149 dims ({cv286['s']:.1f} at 286), "
+          f"MLP-TPU CV {cv149['rows'][0]['Accuracy (%)']:.1f} % "
+          f"({cv286['rows'][0]['Accuracy (%)']:.1f} %); CV grid G=40 "
+          f"{cv149['cv_steps_per_s']:.0f} steps/s ({cv286['cv_steps_per_s']:.0f}), fit G=8 "
+          f"{cv149['fit_steps_per_s']:.0f} steps/s ({cv286['fit_steps_per_s']:.0f}); a profiled "
+          f"window of {prof['steps']} CV steps: {prof['ms_per_step']:.3f} ms "
+          f"and {prof['launches_per_step']:.0f} launches a step, the card idle "
+          f"{100 * prof['idle_share']:.1f} %; run_before_after {train['run_before_after']['s']:.1f} "
+          f"s; permutation importance {cv149['stage_s']['mlp_importance']:.3f} s "
+          f"({cv286['stage_s']['mlp_importance']:.3f}) ({card})")
+
     profiles.update(profile_batches(rng, dev))  # phase 6: where the device time goes
     for name, prof in profiles.items():
         print(f"profile {name}: {json.dumps(prof)} ({card})")
@@ -996,7 +1282,7 @@ def main() -> int:
     paths = [serve["launches"], serve286["launches"], *corpus["launches"].values(),
              head["launches_predict_clip"], head["launches_predict_batch"],
              head["stream_vote"]["launches_one_pass"], head["stream_mlp"]["launches_one_pass"],
-             head["launches_http"]]
+             head["launches_http"], train["launches"], train["serve"]["launches"]]
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
     # (name, max abs error, batch-shape result, request-shape result,
     # stream-shape result); no single PyTorch call computes any of these

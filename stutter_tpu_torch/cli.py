@@ -2,6 +2,8 @@
 
   python -m stutter_tpu_torch preprocess   --root WORKDIR   # clean + QC csv
   python -m stutter_tpu_torch extract      --root WORKDIR [--suffix raw|clean|both]
+  python -m stutter_tpu_torch train        --root WORKDIR [--no-host] [--features F] [--labels L]
+  python -m stutter_tpu_torch train-ab     --root WORKDIR   # before/after cleaning (engine A)
   python -m stutter_tpu_torch predict FILE --root WORKDIR [--no-denoise] [--arch ARCH]
   python -m stutter_tpu_torch stream  FILE --root WORKDIR [--window S --hop S] [--arch mlp|ensemble]
   python -m stutter_tpu_torch serve        --root WORKDIR [--port P] [--ensemble] [--seq-arch A]
@@ -12,6 +14,9 @@ attenuation: 1.0 is the pipeline1 protocol and the default, 0.8 the main.py
 protocol) and --device {cuda,cpu} (cuda, the default, raises when there is
 no GPU).  The workspace layout and every file written are the JAX
 package's (`python -m stutter_tpu`), so the two CLIs share workspaces.
+`train` is engine B for the feature MLP (5-fold CV table, the persisted
+model, permutation importance) and the sklearn zoo where sklearn is
+installed; the sequence heads' flags (--seq ...) are not ported yet.
 """
 
 from __future__ import annotations
@@ -40,6 +45,13 @@ def main(argv: list[str] | None = None) -> int:
     p = sub.add_parser("extract", help="(re)generate the feature cache")
     add_common(p)
     p.add_argument("--suffix", default="clean", choices=["raw", "clean", "both"])
+    p = sub.add_parser("train", help="5-fold CV table + persist the production MLP (engine B)")
+    add_common(p)
+    p.add_argument("--no-host", action="store_true", help="skip the sklearn baselines")
+    p.add_argument("--features", default="clean", choices=["clean", "raw", "both"])
+    p.add_argument("--labels", default="folder", choices=["folder", "5class"],
+                   help="label taxonomy: corpus folders or the 5-class dysfluency set")
+    add_common(sub.add_parser("train-ab", help="before/after cleaning comparison (engine A)"))
     seq_archs = ["cnn", "cnn_bilstm", "transformer", "transformer_lr1e3",
                  "transformer_mix4_lr1e3"]
     p = sub.add_parser("predict", help="classify one audio file")
@@ -98,6 +110,23 @@ def main(argv: list[str] | None = None) -> int:
             X, _, _, ok = extract_corpus(args.root, cfg, sfx, device=args.device)
             extra = "" if ok.all() else f" ({int((~ok).sum())} rows failed decode)"
             print(f"{sfx}: {int(ok.sum())} vectors x {X.shape[1]} dims cached{extra}")
+    elif args.cmd == "train":
+        from stutter_tpu_torch.pipeline import run_cv, setup_logging
+
+        setup_logging(out_dir)
+        res = run_cv(args.root, cfg, include_host=not args.no_host, feature_set=args.features,
+                     labels_taxonomy=args.labels, device=args.device)
+        for row in res["final_rows"]:
+            print(f'{row["Model"]:14s} acc={row["Accuracy (%)"]:.1f}% '
+                  f'P={row["Precision (%)"]:.1f} R={row["Recall (%)"]:.1f} '
+                  f'F1={row["F1-Score (%)"]:.1f}')
+    elif args.cmd == "train-ab":
+        from stutter_tpu_torch.pipeline import run_before_after, setup_logging
+
+        setup_logging(out_dir)
+        for m in run_before_after(args.root, cfg, device=args.device)["metrics"]:
+            print(f'{m["dataset"]:7s} {m["model"]:14s} acc={m["accuracy"]:.2f}% '
+                  f'loss={m["test_loss"]:.4f}')
     elif args.cmd == "predict":
         from stutter_tpu_torch.infer import EnsemblePredictor, Predictor, SeqPredictor
 

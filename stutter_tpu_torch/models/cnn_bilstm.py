@@ -7,8 +7,9 @@ LSTM step by step (`_lstm_scan`, gates i, f, g, o, +1 on the forget gate);
 a masked step carries h and c through unchanged, and the backward
 direction runs on the time-reversed padded sequence.  With a prefix mask
 (every serving path's) that is a plain LSTM over each clip's valid frames
-in both directions, so here it is `torch.nn.LSTM` over a packed sequence,
-the +1 folded into the forget slice of `bias_ih`.  The valid lengths come
+in both directions, so here it is `torch.nn.LSTM` over a packed sequence:
+the JAX bias in `bias_ih`, the +1 in the forget slice of `bias_hh`, and the
+LSTM's weights kept there only.  The valid lengths come
 from the host's clip lengths (`n_valid`), never from a copy off the
 device.  Hidden states at padded steps differ from the scan's (zeros here,
 the carried state there); the pool never reads them.
@@ -48,24 +49,51 @@ def init_cnn_bilstm(
     return {k: v.astype(np.float32) for k, v in params.items()}
 
 
+_DIRECTIONS = (("fwd", ""), ("bwd", "_reverse"))  # JAX name -> nn.LSTM suffix
+
+
 class CNNBiLSTM(Params):
+    """The LSTM's weights live in `self.lstm` only (not in `self.p`), so an
+    optimizer step on them is what `to_jax_params` exports."""
+
     layouts = {r"conv\d+": (2, 1, 0)}  # WIO -> OIW
 
     def __init__(self, params: dict[str, torch.Tensor]):
-        super().__init__(params)
+        super().__init__({k: v for k, v in params.items() if not k.startswith("lstm_")})
         wh = params["lstm_fwd_wh"]
         hidden = wh.shape[0]
         self.lstm = nn.LSTM(params["lstm_fwd_wx"].shape[0], hidden, batch_first=True,
                             bidirectional=True, device=wh.device)
-        forget = torch.zeros(4 * hidden, device=wh.device)
-        forget[hidden : 2 * hidden] = 1.0
         with torch.no_grad():
-            for d, sfx in (("fwd", ""), ("bwd", "_reverse")):
+            for d, sfx in _DIRECTIONS:
                 getattr(self.lstm, f"weight_ih_l0{sfx}").copy_(params[f"lstm_{d}_wx"].T)
                 getattr(self.lstm, f"weight_hh_l0{sfx}").copy_(params[f"lstm_{d}_wh"].T)
-                getattr(self.lstm, f"bias_ih_l0{sfx}").copy_(params[f"lstm_{d}_b"] + forget)
-                getattr(self.lstm, f"bias_hh_l0{sfx}").zero_()
+                getattr(self.lstm, f"bias_ih_l0{sfx}").copy_(params[f"lstm_{d}_b"])
+                getattr(self.lstm, f"bias_hh_l0{sfx}").copy_(self._forget())
         self.lstm.requires_grad_(False)
+
+    def _forget(self) -> torch.Tensor:
+        """The JAX scan's +1 on the forget gate (gates i, f, g, o); nn.LSTM
+        adds bias_ih + bias_hh, and bias_hh starts as this."""
+        h = self.lstm.hidden_size
+        forget = torch.zeros(4 * h, device=self.lstm.weight_hh_l0.device)
+        forget[h : 2 * h] = 1.0
+        return forget
+
+    def to_jax_params(self) -> dict[str, np.ndarray]:
+        """The weights in the JAX package's names and layout; the LSTM's from
+        `self.lstm`: wx = weight_ih.T, wh = weight_hh.T and b = bias_ih +
+        bias_hh - the forget +1 (bias_hh - forget first: exact, so loaded
+        weights export bit for bit)."""
+        out = super().to_jax_params()
+        for d, sfx in _DIRECTIONS:
+            def get(name):
+                return getattr(self.lstm, f"{name}_l0{sfx}").detach()
+
+            out[f"lstm_{d}_wx"] = get("weight_ih").T.cpu().numpy()
+            out[f"lstm_{d}_wh"] = get("weight_hh").T.cpu().numpy()
+            out[f"lstm_{d}_b"] = (get("bias_ih") + (get("bias_hh") - self._forget())).cpu().numpy()
+        return out
 
     def hidden_states(self, x: torch.Tensor, n_valid) -> torch.Tensor:
         """x [B, T, C], n_valid [B] host ints >= 1 (a prefix mask) ->

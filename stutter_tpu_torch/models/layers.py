@@ -70,7 +70,8 @@ class Params(nn.Module):
         device = resolve_device(device)
         out = {}
         for k, v in params.items():
-            t = torch.as_tensor(np.asarray(v, np.float32), device=device)
+            # a copy: a step on the module never writes into the caller's arrays
+            t = torch.tensor(np.asarray(v, np.float32), device=device)
             perm = cls._perm(k)
             if perm is not None:
                 t = t.permute(*range(cls.lead), *(cls.lead + i for i in perm)).contiguous()

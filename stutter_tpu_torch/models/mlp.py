@@ -5,16 +5,59 @@ FittedMLP).
 The JAX package trains S seeds of one MLP as a stacked pytree (seed axis
 first) and predicts with the mean over seeds of the softmax.  `SeedMLP`
 holds the same stacked weights, [S, d_in, d_out] and [S, d_out] per layer,
-and runs all seeds as one batched product per layer.
+and runs all seeds as one batched product per layer (`apply_mlp_grid`),
+which is also the trainer's forward over its [G, ...] grid.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
 from stutter_tpu_torch.device import resolve_device
+
+
+def init_mlp(
+    seed: int, in_dim: int, hidden: Sequence[int] = (256, 128, 64), n_classes: int = 3
+) -> dict[str, np.ndarray]:
+    """He-initialized weights in the JAX package's names ({w0, b0, w1, ...}):
+    randn(d_in, d_out) * sqrt(2 / d_in), zero biases, drawn layer by layer
+    from np.random.RandomState(seed), so every device starts from the same
+    weights."""
+    rng = np.random.RandomState(seed)
+    dims = [in_dim, *hidden, n_classes]
+    params = {}
+    for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
+        params[f"w{i}"] = (rng.randn(d_in, d_out) * np.sqrt(2.0 / d_in)).astype(np.float32)
+        params[f"b{i}"] = np.zeros(d_out, np.float32)
+    return params
+
+
+def apply_mlp_grid(
+    weights: Sequence[torch.Tensor],
+    biases: Sequence[torch.Tensor],
+    x: torch.Tensor,
+    keeps: Sequence[torch.Tensor] | None = None,
+    dropout: float = 0.0,
+) -> torch.Tensor:
+    """x [G, M, d_in] through G stacked MLPs (weights [G, d_in, d_out],
+    biases [G, d_out]) -> logits [G, M, n_classes].
+
+    `keeps` (training only): one bool keep-mask [G, M, d_out] per hidden
+    layer.  As the JAX package's apply_mlp, a kept unit after a hidden ReLU
+    is scaled by 1 / (1 - dropout) and a dropped one is 0."""
+    h = x
+    last = len(weights) - 1
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        h = torch.baddbmm(b.unsqueeze(1), h, w)
+        if i < last:
+            h = torch.relu(h)
+            if keeps is not None:
+                h = torch.where(keeps[i], h / (1.0 - dropout), 0.0)
+    return h
 
 
 class SeedMLP(nn.Module):
@@ -59,9 +102,4 @@ class SeedMLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [M, d_in] -> [M, n_classes] mean over seeds of softmax(logits)."""
         h = x.unsqueeze(0).expand(self.n_seeds, *x.shape)
-        last = len(self.weights) - 1
-        for i, (w, b) in enumerate(zip(self.weights, self.biases)):
-            h = torch.baddbmm(b.unsqueeze(1), h, w)
-            if i < last:
-                h = torch.relu(h)
-        return torch.softmax(h, dim=-1).mean(dim=0)
+        return torch.softmax(apply_mlp_grid(self.weights, self.biases, h), dim=-1).mean(dim=0)

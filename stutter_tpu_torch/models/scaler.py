@@ -62,3 +62,11 @@ class StandardScaler:
 @dataclasses.dataclass
 class LabelEncoder:
     classes_: list[str]  # class names in label-index order
+
+    @classmethod
+    def fit(cls, labels: list[str]) -> "LabelEncoder":
+        return cls(classes_=sorted(set(labels)))
+
+    def transform(self, labels: list[str]) -> np.ndarray:
+        index = {c: i for i, c in enumerate(self.classes_)}
+        return np.array([index[l] for l in labels], dtype=np.int32)

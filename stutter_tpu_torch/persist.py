@@ -8,6 +8,8 @@ there serve here unchanged:
   model_<arch>.npz            a sequence head's params (flattened names)
   model_<arch>_norm.npz       its per-feature mean / std
   model_<arch>.json           {"arch", "classes", "kind"}
+and, where sklearn and joblib are installed, the reference's pickles
+(scaler_after.pkl, label_encoder.pkl, model_rf.pkl).
 """
 
 from __future__ import annotations
@@ -98,3 +100,62 @@ def save_label_encoder(path: str | Path, le: LabelEncoder) -> None:
 
 def load_label_encoder(path: str | Path) -> LabelEncoder:
     return LabelEncoder(classes_=json.loads(Path(path).read_text())["classes"])
+
+
+def to_sklearn_scaler(scaler: StandardScaler):
+    """The fitted state as a real sklearn StandardScaler, so reference code
+    can `joblib.load('scaler_after.pkl').transform(X)` unchanged (ref
+    consumers: main1.py:983-987)."""
+    from sklearn.preprocessing import StandardScaler as SkScaler
+
+    sk = SkScaler()
+    mean = np.asarray(scaler.mean_, np.float64)
+    scale = np.asarray(scaler.scale_, np.float64)
+    sk.mean_ = mean
+    sk.scale_ = scale
+    # var_ is the RAW variance (0 where scale_ was clamped to 1); fall back to
+    # scale_**2 for scalers saved before var_ was tracked.
+    sk.var_ = np.asarray(scaler.var_, np.float64) if scaler.var_ is not None else scale**2
+    sk.n_features_in_ = mean.shape[0]
+    sk.n_samples_seen_ = int(scaler.n_samples_seen_ or 0)
+    return sk
+
+
+def to_sklearn_label_encoder(le: LabelEncoder):
+    """Export as a real sklearn LabelEncoder (classes_ must be an ndarray)."""
+    from sklearn.preprocessing import LabelEncoder as SkLE
+
+    sk = SkLE()
+    sk.classes_ = np.asarray(le.classes_, dtype=object)
+    return sk
+
+
+def save_sklearn_artifacts(output_dir: str, scaler=None, le=None, rf=None) -> None:
+    """Reference-compatible pickles (ref filenames, main.py:889-890, 948):
+    scaler_after.pkl, label_encoder.pkl, model_rf.pkl.  The port's scaler
+    and label encoder are converted to genuine sklearn estimators first.
+    Skipped silently where joblib is not installed, as in the JAX package."""
+    try:
+        import joblib
+    except ImportError:
+        return
+    os.makedirs(output_dir, exist_ok=True)
+    if scaler is not None:
+        if isinstance(scaler, StandardScaler):
+            scaler = to_sklearn_scaler(scaler)
+        joblib.dump(scaler, os.path.join(output_dir, "scaler_after.pkl"))
+    if le is not None:
+        if isinstance(le, LabelEncoder):
+            le = to_sklearn_label_encoder(le)
+        joblib.dump(le, os.path.join(output_dir, "label_encoder.pkl"))
+    if rf is not None:
+        joblib.dump(rf, os.path.join(output_dir, "model_rf.pkl"))
+
+
+def clear_stale_artifacts(output_dir: str) -> None:
+    """Delete stale model pickles at startup (ref: main1.py:795-799) so
+    feature-shape drift fails loudly instead of misclassifying."""
+    for name in ("model_rf.pkl", "scaler_after.pkl", "label_encoder.pkl"):
+        p = os.path.join(output_dir, name)
+        if os.path.exists(p):
+            os.unlink(p)

@@ -1,23 +1,31 @@
-"""The corpus path (counterpart of the corpus half of stutter_tpu/pipeline.py):
+"""End-to-end entry points (counterpart of stutter_tpu/pipeline.py):
 
-  * preprocess():      denoise every corpus clip into clear_audio/ and write
-                       the per-file QC report per_file_analysis.csv
-                       (ref pipeline1.py:371-424, main.py:842-867)
-  * extract_corpus():  the feature cache, both variants
-                       (ref pipeline1.py:429-456, main.py:665-672)
+  * preprocess():        denoise every corpus clip into clear_audio/ and
+                         write the per-file QC report per_file_analysis.csv
+                         (ref pipeline1.py:371-424, main.py:842-867)
+  * extract_corpus():    the feature cache, both variants
+                         (ref pipeline1.py:429-456, main.py:665-672)
+  * run_before_after():  engine A -- one stratified 80/20 split, raw vs
+                         clean features (ref pipeline1.py:462-637)
+  * run_cv():            engine B -- the 5-fold CV table, the persisted
+                         production MLP and its permutation importance
+                         (ref main.py:872-1006); the feature MLP only, the
+                         sequence heads' training is not ported yet
 
-Both run on an explicit device: the gate and spectromel kernels for
-`cuda`, their plain versions for `cpu`.  They write what the JAX package
-writes -- the same clear_audio/ files, the same cache_features/ names
-(`cache.FeatureCache`, the port's copy of the JAX package's, with the
-`_d286` namespace of the 286-dim variant) and the same
-per_file_analysis.csv columns -- so either package reads the other's
-workspace.
+Each runs on an explicit device: the gate and spectromel kernels and the
+MLP grid on `cuda`, their plain versions on `cpu`.  They write what the
+JAX package writes -- the same clear_audio/ files, the same cache_features/
+names (`cache.FeatureCache`, with the `_d286` namespace of the 286-dim
+variant), and the same CSV, HTML, .npz and .json artifacts under the same
+names, headers and row names ("MLP-TPU" for the seed-ensembled MLP) -- so
+either package reads the other's workspace.  sklearn's model zoo and the
+reference's pickles are written where sklearn and joblib are installed.
 
 Unlike the JAX package, a device or kernel error is never caught: an
-undecodable file degrades its own row, and a malformed clip is left raw by
-the denoiser, but a kernel that fails to build or launch raises through
-both entry points.
+undecodable file degrades its own row, a malformed clip is left raw by the
+denoiser, and a host (sklearn) model that fails is logged and left out of
+the tables, but a kernel or the MLP grid failing raises through every entry
+point.
 """
 
 from __future__ import annotations
@@ -29,15 +37,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from stutter_tpu_torch import evals, persist, report
 from stutter_tpu_torch.cache import FeatureCache
 from stutter_tpu_torch.config import DenoiseConfig, PipelineConfig
-from stutter_tpu_torch.data import label_of, list_audio_files
+from stutter_tpu_torch.data import encode_labels, label_of, list_audio_files
 from stutter_tpu_torch.denoise import denoise_clips
 from stutter_tpu_torch.evals import write_csv
 from stutter_tpu_torch.device import resolve_device
 from stutter_tpu_torch.io.decode import read_audio, to_rate
 from stutter_tpu_torch.io.wav import load_mono, write_wav
+from stutter_tpu_torch.models.mlp import SeedMLP
+from stutter_tpu_torch.models.scaler import LabelEncoder, StandardScaler
 from stutter_tpu_torch.ops.frontend import DEFAULT_BUCKETS, batch_extractor_for, run_bucketed
+from stutter_tpu_torch.train.splits import stratified_kfold, stratified_train_test_split
+from stutter_tpu_torch.train.trainer import MLPTrainConfig, cross_validate_mlp, fit_mlp
 from stutter_tpu_torch.utils.profiling import StageTimer
 
 log = logging.getLogger("stutter_tpu_torch.pipeline")
@@ -243,3 +256,367 @@ def extract_corpus(
         log.warning("extract_corpus(%s): %d/%d rows failed decode and are zero/ok=False",
                     suffix, n_failed, len(files))
     return X, labels, files, ok
+
+
+def _host_zoo(variant: str, seed: int) -> dict:
+    """The reference's sklearn models (host_baselines), or {} where sklearn
+    is not installed."""
+    from stutter_tpu_torch.models.host_baselines import reference_model_zoo
+
+    try:
+        return reference_model_zoo(variant, seed)
+    except ImportError:
+        log.warning("sklearn unavailable; host baselines skipped")
+        return {}
+
+
+class _TpuMLPAdapter:
+    """sklearn-like adapter over the seed-ensembled MLP on one device."""
+
+    def __init__(self, cfg: MLPTrainConfig, device: torch.device | str = "cuda"):
+        self.cfg, self.device = cfg, resolve_device(device)
+        self.fitted: SeedMLP | None = None
+
+    def fit(self, X, y):
+        self.fitted = fit_mlp(np.asarray(X, np.float32), np.asarray(y), self.cfg,
+                              device=self.device)
+        return self
+
+    def predict_proba(self, X) -> np.ndarray:
+        with torch.no_grad():
+            x = torch.as_tensor(np.asarray(X, np.float32), device=self.device)
+            return self.fitted(x).cpu().numpy()
+
+    def predict(self, X) -> np.ndarray:
+        return self.predict_proba(X).argmax(axis=-1)
+
+
+def _evaluate_models(models: dict, X_tr, y_tr, X_te, y_te, set_name, out_dir, class_names,
+                     timer: StageTimer):
+    """Fit, predict and write the metrics of each model on one dataset --
+    engine A's inner loop (ref: pipeline1.py:508-531): confusion_<set>_<model>
+    and class_report_<set>_<model> CSVs, confusion_<set>.html, auc_<set>.csv,
+    roc_<set>.csv and roc_<set>.html.  Each model's fit and predictions are
+    timed as the stage <set>_<model> of `timer`."""
+    metrics_rows, probs, preds, cm_svgs = [], {}, {}, []
+    for name, model in models.items():
+        try:
+            with timer.stage(f"{set_name}_{name}"):
+                model.fit(X_tr, y_tr)
+                p = model.predict(X_te)
+                pr = model.predict_proba(X_te)
+        except Exception as e:  # noqa: BLE001 - a host model degrades its own row
+            if isinstance(model, _TpuMLPAdapter):
+                raise
+            log.error("training error %s on %s: %s", name, set_name, e)
+            continue
+        acc = evals.accuracy(y_te, p) * 100.0
+        loss = evals.log_loss(y_te, pr)
+        metrics_rows.append({"dataset": set_name, "model": name, "accuracy": acc, "test_loss": loss})
+        probs[name], preds[name] = pr, p
+        log.info("%s/%s acc=%.2f%% loss=%.4f (%.1fs)", set_name, name, acc, loss,
+                 timer.totals[f"{set_name}_{name}"])
+
+        cm = evals.confusion_matrix(y_te, p, len(class_names))
+        evals.write_confusion_csv(
+            os.path.join(out_dir, f"confusion_{set_name}_{name}.csv"), cm, class_names)
+        cm_svgs.append((name, cm))
+        evals.write_classification_report_csv(
+            os.path.join(out_dir, f"class_report_{set_name}_{name}.csv"),
+            evals.classification_report_dict(y_te, p, class_names))
+    if cm_svgs:  # per-model heatmaps (ref renders them with Plotly, pipeline1.py:570-600)
+        report.write_html(
+            os.path.join(out_dir, f"confusion_{set_name}.html"),
+            f"Confusion Matrices ({set_name})",
+            [report.confusion_svg(cm, class_names, f"{name} ({set_name})") for name, cm in cm_svgs],
+        )
+
+    # per-class ROC/AUC across models (ref plot_roc; roc_{before,after}.html,
+    # pipeline1.py:553, 563)
+    auc_rows, roc_rows, curves = [], [], []
+    for name, pr in probs.items():
+        for c, cls in enumerate(class_names):
+            y_bin = np.asarray(y_te) == c
+            fpr, tpr, thr = evals.roc_curve(y_bin, pr[:, c])
+            auc = evals.auc_score(y_bin, pr[:, c])
+            auc_rows.append({"model": name, "class": cls, "auc": auc})
+            curves.append({"label": f"{name} - {cls}", "fpr": fpr, "tpr": tpr, "auc": auc})
+            roc_rows += [{"model": name, "class": cls, "fpr": f, "tpr": t, "threshold": th}
+                         for f, t, th in zip(fpr, tpr, thr)]
+    evals.write_auc_csv(os.path.join(out_dir, f"auc_{set_name}.csv"), auc_rows)
+    evals.write_roc_points_csv(os.path.join(out_dir, f"roc_{set_name}.csv"), roc_rows)
+    report.write_html(
+        os.path.join(out_dir, f"roc_{set_name}.html"),
+        f"Multi-Class ROC ({set_name})",
+        [report.roc_svg(curves, f"Multi-Class ROC ({set_name})")],
+    )
+    return metrics_rows, probs, preds
+
+
+def run_before_after(
+    root: str = ".", cfg: PipelineConfig = PipelineConfig(), *,
+    device: torch.device | str = "cuda",
+) -> dict:
+    """Engine A: raw-vs-clean comparison on one stratified 80/20 split
+    (ref: pipeline1.py:462-637), MLP-TPU beside the pipeline1 sklearn zoo.
+
+    MLP-TPU has as many outputs as the corpus has classes; the JAX package
+    trains it with 3 whatever the class count.  `stage_s`: wall seconds of
+    the features and of each <set>_<model> fit with its predictions."""
+    dev = resolve_device(device)
+    out_dir = os.path.join(root, cfg.data.output_dir)
+    os.makedirs(out_dir, exist_ok=True)
+
+    timer = StageTimer()
+    with timer.stage("features"):
+        X_raw, labels, _, ok_r = extract_corpus(root, cfg, "raw", device=dev)
+        X_clean, _, _, ok_c = extract_corpus(root, cfg, "clean", device=dev)
+    keep = ok_r & ok_c
+    if not keep.all():
+        log.warning("dropping %d undecodable rows from engine A", int((~keep).sum()))
+        X_raw, X_clean = X_raw[keep], X_clean[keep]
+        labels = [l for l, k in zip(labels, keep) if k]
+    if not labels:
+        raise RuntimeError("no decodable corpus rows; run preprocess first")
+    le = LabelEncoder.fit(labels)
+    y = le.transform(labels)
+    class_names = le.classes_
+    mlp_cfg = MLPTrainConfig(n_classes=len(class_names))
+
+    Xb = StandardScaler.fit(X_raw).transform(X_raw)
+    Xa = StandardScaler.fit(X_clean).transform(X_clean)
+    tr, te = stratified_train_test_split(y, cfg.train.test_size, cfg.train.seed)
+    write_csv(os.path.join(out_dir, "train_test_sizes.csv"),
+              ["dataset", "train_size", "test_size"],
+              [["before", len(tr), len(te)], ["after", len(tr), len(te)]])
+
+    all_metrics, results = [], {}
+    for set_name, X in (("before", Xb), ("after", Xa)):
+        models = {"MLP-TPU": _TpuMLPAdapter(mlp_cfg, dev),
+                  **_host_zoo("pipeline1", cfg.train.seed)}
+        m, probs, preds = _evaluate_models(models, X[tr], y[tr], X[te], y[te], set_name,
+                                           out_dir, class_names, timer)
+        all_metrics += m
+        results[set_name] = {"models": models, "probs": probs, "preds": preds}
+    evals.write_metrics_summary_csv(os.path.join(out_dir, "metrics_summary.csv"), all_metrics)
+
+    # accuracy / log-loss bars (ref renders these with Plotly, pipeline1.py:533-542)
+    bar_labels = [f'{r["dataset"]}/{r["model"]}' for r in all_metrics]
+    report.write_html(
+        os.path.join(out_dir, "metrics_summary.html"),
+        "Before/After Cleaning — Model Metrics",
+        [report.bar_svg(bar_labels, [r["accuracy"] for r in all_metrics], "Accuracy (%)"),
+         report.bar_svg(bar_labels, [r["test_loss"] for r in all_metrics], "Log-loss", unit="")],
+    )
+
+    # RF feature importances on 'after' (ref: pipeline1.py:605-618)
+    rf = results["after"]["models"].get("RandomForest")
+    if rf is not None and hasattr(rf, "feature_importances_"):
+        names = cfg.features.feature_names()
+        imp = rf.feature_importances_
+        write_csv(os.path.join(out_dir, "feature_importances_after_rf.csv"),
+                  ["feature", "importance"],
+                  [[names[i], float(imp[i])] for i in np.argsort(-imp)])
+    timer.log_report()
+    return {"metrics": all_metrics, "y_test": y[te], "results": results, "classes": class_names,
+            "stage_s": dict(timer.totals)}
+
+
+_SEQ_KNOBS = {  # run_cv's sequence-head arguments and their defaults
+    "include_seq": False, "seq_seeds": 1, "seq_epochs": 80, "ensemble_mlp": "none",
+    "seq_archs": ("cnn", "cnn_bilstm", "transformer", "transformer_lr1e3",
+                  "transformer_mix4_lr1e3"),
+    "seq_tta_crops": (), "seq_raw_archs": (), "seq_class_balanced": False,
+}
+
+
+def run_cv(
+    root: str = ".",
+    cfg: PipelineConfig = PipelineConfig(),
+    include_host: bool = True,
+    feature_set: str = "clean",
+    include_seq: bool = False,
+    labels_taxonomy: str = "folder",
+    seq_seeds: int = 1,
+    seq_epochs: int = 80,
+    ensemble_mlp: str = "none",
+    seq_archs: tuple = _SEQ_KNOBS["seq_archs"],
+    seq_tta_crops: tuple = (),
+    seq_raw_archs: tuple = (),
+    seq_class_balanced: bool = False,
+    *,
+    device: torch.device | str = "cuda",
+) -> dict:
+    """Engine B: the 5-fold CV production table (ref: main.py:872-1006).
+
+    feature_set: 'clean' (reference protocol), 'raw', or 'both' (raw+clean
+    concatenation).  labels_taxonomy: 'folder' (reference protocol) or
+    '5class' (folders map into the 5-class dysfluency taxonomy, 5 outputs).
+    Writes FINAL_PERFORMANCE_TABLE.csv,
+    final_performance.html, scaler_after.npz, label_encoder.json,
+    model_mlp_tpu.{npz,json}, permutation_importance_mlp_tpu.{csv,html}, the
+    single-split confusion_<model>.csv and confusion_matrices.html, and with
+    sklearn the zoo's rows, permutation_importance_rf.{csv,html} and the
+    reference's pickles.  `stage_s`: wall seconds of the features, the CV
+    grid (mlp_cv), the production fit and its save (mlp_fit), the MLP's
+    permutation importance and each single_split_<model>.
+
+    The sequence heads' training is not ported: include_seq=True, or any
+    sequence knob off its default, raises NotImplementedError."""
+    asked = sorted(k for k, v in dict(
+        include_seq=include_seq, seq_seeds=seq_seeds, seq_epochs=seq_epochs,
+        ensemble_mlp=ensemble_mlp, seq_archs=tuple(seq_archs),
+        seq_tta_crops=tuple(seq_tta_crops), seq_raw_archs=tuple(seq_raw_archs),
+        seq_class_balanced=seq_class_balanced).items() if v != _SEQ_KNOBS[k])
+    if asked:
+        raise NotImplementedError(
+            f"run_cv({', '.join(asked)}): the sequence heads' training is not ported to "
+            f"stutter_tpu_torch yet (ROADMAP Queue 1, sequence training); use stutter_tpu")
+    dev = resolve_device(device)
+    out_dir = os.path.join(root, cfg.data.output_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    # delete stale model pickles so feature-shape drift fails loudly at
+    # inference instead of misclassifying (ref: main1.py:795-799)
+    persist.clear_stale_artifacts(out_dir)
+
+    timer = StageTimer()
+    with timer.stage("features"):
+        if feature_set == "both":
+            X_raw, labels, _, ok_r = extract_corpus(root, cfg, "raw", device=dev)
+            X_clean, _, _, ok_c = extract_corpus(root, cfg, "clean", device=dev)
+            X, ok = np.concatenate([X_raw, X_clean], axis=1), ok_r & ok_c
+        else:
+            X, labels, _, ok = extract_corpus(root, cfg, feature_set, device=dev)
+    if not ok.all():
+        log.warning("dropping %d undecodable rows from engine B", int((~ok).sum()))
+        X = X[ok]
+        labels = [l for l, k in zip(labels, ok) if k]
+    if not labels:
+        raise RuntimeError("no decodable corpus rows; run preprocess first")
+    labels, le = encode_labels(labels, labels_taxonomy)
+    y = le.transform(labels)
+    class_names = le.classes_
+
+    scaler = StandardScaler.fit(X)
+    Xs = scaler.transform(X).astype(np.float32)
+    folds = stratified_kfold(y, cfg.train.n_folds, cfg.train.seed)
+    persist.save_scaler(os.path.join(out_dir, "scaler_after.npz"), scaler)
+    persist.save_label_encoder(os.path.join(out_dir, "label_encoder.json"), le)
+
+    final_rows = []
+
+    def add_row(name, y_pred):
+        """Per-fold macro metrics averaged across folds -- the reference's
+        protocol exactly (ref: main.py:918-944), not pooled out-of-fold."""
+        accs, ps, rs, fs = [], [], [], []
+        for _, te in folds:
+            accs.append(evals.accuracy(y[te], y_pred[te]))
+            p, r, f, _ = evals.precision_recall_fscore(y[te], y_pred[te], len(class_names),
+                                                       "macro")
+            ps.append(p), rs.append(r), fs.append(f)
+        final_rows.append({
+            "Model": name,
+            "Accuracy (%)": float(np.mean(accs)) * 100,
+            "Precision (%)": float(np.mean(ps)) * 100,
+            "Recall (%)": float(np.mean(rs)) * 100,
+            "F1-Score (%)": float(np.mean(fs)) * 100,
+        })
+
+    # the seed-ensembled MLP: the whole folds x seeds grid at once
+    mlp_cfg = MLPTrainConfig(n_classes=len(class_names))
+    with timer.stage("mlp_cv"):
+        pred, _ = cross_validate_mlp(Xs, y, folds, mlp_cfg, device=dev)
+    add_row("MLP-TPU", pred)
+    log.info("MLP-TPU CV done in %.1fs: acc=%.1f%%", timer.totals["mlp_cv"],
+             final_rows[-1]["Accuracy (%)"])
+
+    rf_full = None
+    for name, model in (_host_zoo("main", cfg.train.seed) if include_host else {}).items():
+        y_pred = np.zeros_like(y)
+        for tr_idx, te_idx in folds:
+            model.fit(Xs[tr_idx], y[tr_idx])
+            y_pred[te_idx] = model.predict(Xs[te_idx])
+        add_row(name, y_pred)
+        if name == "RandomForest":
+            model.fit(Xs, y)  # refit on all data (ref main.py:946-948)
+            rf_full = model
+
+    evals.write_final_performance_csv(os.path.join(out_dir, "FINAL_PERFORMANCE_TABLE.csv"),
+                                      final_rows)
+    report.write_html(
+        os.path.join(out_dir, "final_performance.html"),
+        "Final Performance (5-fold CV)",
+        [report.bar_svg([r["Model"] for r in final_rows],
+                        [r["Accuracy (%)"] for r in final_rows], "5-fold CV Accuracy")],
+    )
+
+    # the production model on all rows, plus the reference's pickle trio
+    # (ref: main.py:889-890, 948)
+    with timer.stage("mlp_fit"):  # save_mlp's copy to the host ends the stage
+        fitted = fit_mlp(Xs, y, mlp_cfg, device=dev)
+        persist.save_mlp(os.path.join(out_dir, "model_mlp_tpu"), fitted)
+    persist.save_sklearn_artifacts(out_dir, scaler=scaler, le=le, rf=rf_full)
+
+    names = cfg.features.feature_names()
+    if feature_set == "both":
+        names = [f"raw_{n}" for n in names] + [f"clean_{n}" for n in names]
+
+    def write_importance(fname, imp_mean, imp_std, title):
+        order = np.argsort(-imp_mean)[:20]
+        write_csv(os.path.join(out_dir, fname), ["feature", "importance", "std"],
+                  [[names[i], float(imp_mean[i]), float(imp_std[i])] for i in order])
+        report.write_html(
+            os.path.join(out_dir, fname.replace(".csv", ".html")), title,
+            [report.bar_svg([names[i] for i in order], [float(imp_mean[i]) for i in order],
+                            title, unit="")],
+        )
+
+    # permutation importance of the refit RF -- the reference's artifact
+    # (ref: main.py:976-989: n_repeats=10, random_state=42, n_jobs=-1)
+    if rf_full is not None:
+        from sklearn.inspection import permutation_importance
+
+        r = permutation_importance(rf_full, Xs, y, n_repeats=10, random_state=cfg.train.seed,
+                                   n_jobs=-1)
+        write_importance("permutation_importance_rf.csv", r.importances_mean,
+                         r.importances_std, "Permutation importance (RandomForest)")
+
+    # ... and of the production MLP, under its own name
+    from stutter_tpu_torch.importance import permutation_importance_tpu
+
+    with timer.stage("mlp_importance"):
+        imp_mean, imp_std = permutation_importance_tpu(fitted, Xs, y, n_repeats=10,
+                                                       seed=cfg.train.seed)
+    log.info("MLP-TPU permutation importance done in %.1fs", timer.totals["mlp_importance"])
+    write_importance("permutation_importance_mlp_tpu.csv", imp_mean, imp_std,
+                     "Permutation importance (MLP-TPU)")
+
+    # single-split confusion matrices (ref: main.py:992-1006)
+    tr, te = stratified_train_test_split(y, cfg.train.test_size, cfg.train.seed)
+    single = {"MLP-TPU": _TpuMLPAdapter(mlp_cfg, dev)}
+    if include_host:
+        single.update({k: v for k, v in _host_zoo("main", cfg.train.seed).items()
+                       if k != "Ensemble"})
+    cm_svgs = []
+    for name, model in single.items():
+        try:
+            with timer.stage(f"single_split_{name}"):
+                model.fit(Xs[tr], y[tr])
+                p = model.predict(Xs[te])
+        except Exception as e:  # noqa: BLE001 - a host model degrades its own matrix
+            if isinstance(model, _TpuMLPAdapter):
+                raise
+            log.error("single-split confusion failed for %s: %s", name, e)
+            continue
+        cm = evals.confusion_matrix(y[te], p, len(class_names))
+        evals.write_confusion_csv(os.path.join(out_dir, f"confusion_{name}.csv"), cm, class_names)
+        cm_svgs.append((name, cm))
+    if cm_svgs:
+        report.write_html(
+            os.path.join(out_dir, "confusion_matrices.html"),
+            "Confusion Matrices (single split)",
+            [report.confusion_svg(cm, class_names, name) for name, cm in cm_svgs],
+        )
+    timer.log_report()
+    return {"final_rows": final_rows, "classes": class_names, "scaler": scaler, "le": le,
+            "mlp": fitted, "folds": folds, "stage_s": dict(timer.totals)}

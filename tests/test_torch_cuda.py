@@ -373,3 +373,41 @@ def test_heads_vote_and_streams_on_the_card_match_the_cpu(cuda, tmp_path):
                                                                               hop_s=1.0)
     assert [x["start_s"] for x in w] == [x["start_s"] for x in wc]
     assert max(abs(x["proba"][k] - z["proba"][k]) for x, z in zip(w, wc) for k in "abc") < 1e-3
+
+
+def test_fed_training_steps_on_the_card_equal_the_cpu(cuda):
+    """Five GridTrainer steps at the published widths (149-256-128-64-3,
+    G = 6, batch 128), the same initial weights, batch rows and dropout
+    masks fed to both: the card's parameters equal the CPU's within 1e-4
+    relative, normwise per tensor.  Then batches drawn on the card never take a padded row."""
+    from stutter_tpu_torch.train.trainer import (
+        GridTrainer, MLPTrainConfig, draw_batch, init_grid)
+
+    cfg = MLPTrainConfig()
+    G, N, steps = 6, 300, 5
+    rng = np.random.RandomState(17)
+    X = rng.randn(G, N, 149).astype(np.float32)
+    y = rng.randint(0, 3, (G, N))
+    idx = rng.randint(0, N, (steps, G, cfg.batch_size))
+    keeps = [[rng.rand(G, cfg.batch_size, h) < 1 - cfg.dropout for h in cfg.hidden]
+             for _ in range(steps)]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        tr = GridTrainer(init_grid(range(42, 42 + G), 149, cfg, dev), cfg, 100)
+        rows = np.arange(G)[:, None]
+        for t in range(steps):
+            tr.step(torch.from_numpy(X[rows, idx[t]]).to(dev),
+                    torch.from_numpy(y[rows, idx[t]]).to(dev),
+                    torch.ones(G, cfg.batch_size, device=dev),
+                    [torch.from_numpy(k).to(dev) for k in keeps[t]])
+        out[dev.type] = {k: v.cpu().numpy() for k, v in tr.params().items()}
+    for k, ref in out["cpu"].items():  # normwise: see chip_smoke.step_errors
+        assert np.linalg.norm(out["cuda"][k] - ref) / np.linalg.norm(ref) < 1e-4, k
+
+    w = torch.ones(G, N, device=cuda)
+    w[:, 200:] = 0
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    Xd = torch.from_numpy(X).to(cuda)
+    for _ in range(20):
+        _, _, wb, kept = draw_batch(Xd, torch.from_numpy(y).to(cuda), w, cfg, gen)
+        assert bool((wb == 1).all()) and kept[0].device.type == "cuda"

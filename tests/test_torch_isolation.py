@@ -1,9 +1,11 @@
 """The port stands alone: nothing under stutter_tpu_torch/, and not
 chip_smoke.py, imports the JAX package or JAX, and each copy the port keeps
-of a JAX-package module (config, data, cache, the CSV writer, io.wav,
-io.mp3, the decoder registry, the C++ WAV loader, ops.filterbanks,
-utils.profiling, serve's upload sniffing and cap, persist's parameter
-flattening) gives what the original gives."""
+of a JAX-package module (config, data and its label taxonomy, cache,
+evals' metrics and CSV writers, report, train.splits with and without
+sklearn, models.host_baselines, io.wav, io.mp3, the decoder registry, the
+C++ WAV loader, ops.filterbanks, utils.profiling, serve's upload sniffing
+and cap, persist's parameter flattening and sklearn helpers) gives what the
+original gives."""
 
 import ast
 import dataclasses
@@ -76,9 +78,10 @@ assert abs(sum(r["proba"].values()) - 1) < 1e-5, r
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("stutter_tpu", "jax", "jaxlib"))
 assert not bad, bad
-assert len(names) >= 38, names
+assert len(names) >= 43, names
 need = {'serve', 'train.seq_pipeline', 'train.seq_trainer', 'models.cnn', 'models.cnn_bilstm',
-        'models.transformer'}
+        'models.transformer', 'train.trainer', 'train.splits', 'importance', 'report',
+        'models.host_baselines'}
 assert {'stutter_tpu_torch.' + n for n in need} <= set(names), names
 print(len(names))
 """
@@ -255,3 +258,171 @@ def test_param_flattening_equals_the_jax_package():
     back, jback = persist._unflatten_params(flat), jpersist._unflatten_params(flat)
     assert back.keys() == jback.keys() and back["blk"]["ln"].keys() == jback["blk"]["ln"].keys()
     np.testing.assert_array_equal(back["blk"]["ln"]["g"], tree["blk"]["ln"]["g"])
+
+
+@pytest.mark.parametrize("have_sklearn", [True, False])
+def test_splits_equal_the_jax_package(monkeypatch, have_sklearn):
+    """sklearn's splits where it is installed, the seeded fallback where it
+    is not (the card's case): the same indices in both packages."""
+    from stutter_tpu.train import splits as J
+    from stutter_tpu_torch.train import splits as P
+
+    assert P.HAVE_SKLEARN == J.HAVE_SKLEARN
+    monkeypatch.setattr(P, "HAVE_SKLEARN", have_sklearn)
+    monkeypatch.setattr(J, "HAVE_SKLEARN", have_sklearn)
+    y = np.random.RandomState(0).randint(0, 3, 905)
+    for n_splits, seed in ((5, 42), (3, 7)):
+        for (a, b), (c, d) in zip(P.stratified_kfold(y, n_splits, seed),
+                                  J.stratified_kfold(y, n_splits, seed), strict=True):
+            np.testing.assert_array_equal(a, c)
+            np.testing.assert_array_equal(b, d)
+    for got, ref in zip(P.stratified_train_test_split(y, 0.2, 42),
+                        J.stratified_train_test_split(y, 0.2, 42)):
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_metrics_equal_the_jax_package():
+    from stutter_tpu import evals as J
+    from stutter_tpu_torch import evals as P
+
+    rng = np.random.RandomState(1)
+    y = rng.randint(0, 4, 200)
+    proba = rng.dirichlet(np.ones(4), 200).astype(np.float32)
+    pred = np.where(rng.rand(200) < 0.7, y, rng.randint(0, 4, 200))
+    pred[pred == 3] = 2  # a class never predicted: zero_division
+    assert P.accuracy(y, pred) == J.accuracy(y, pred)
+    assert P.log_loss(y, proba) == J.log_loss(y, proba)
+    np.testing.assert_array_equal(P.confusion_matrix(y, pred, 4), J.confusion_matrix(y, pred, 4))
+    for avg in ("macro", "weighted", None):
+        for a, b in zip(P.precision_recall_fscore(y, pred, 4, avg),
+                        J.precision_recall_fscore(y, pred, 4, avg)):
+            np.testing.assert_array_equal(a, b)
+    score = np.round(proba[:, 1], 2)  # ties, as probabilities have
+    for drop in (True, False):
+        for a, b in zip(P.roc_curve(y == 1, score, drop), J.roc_curve(y == 1, score, drop)):
+            np.testing.assert_array_equal(a, b)
+    assert P.auc_score(y == 1, score) == J.auc_score(y == 1, score)
+    names = ["a", "b,c", "d", "e"]
+    assert P.classification_report_dict(y, pred, names) == J.classification_report_dict(
+        y, pred, names)
+
+
+def test_csv_writers_equal_the_jax_package(tmp_path):
+    from stutter_tpu import evals as J
+    from stutter_tpu_torch import evals as P
+
+    rng = np.random.RandomState(2)
+    y, pred = rng.randint(0, 3, 50), rng.randint(0, 3, 50)
+    names = ["block", "word repetition", 'x "q"']
+    rep = J.classification_report_dict(y, pred, names)
+    fpr, tpr, thr = J.roc_curve(y == 0, rng.rand(50))
+    calls = {
+        "confusion": lambda m, p: m.write_confusion_csv(p, J.confusion_matrix(y, pred, 3), names),
+        "report": lambda m, p: m.write_classification_report_csv(p, rep),
+        "auc": lambda m, p: m.write_auc_csv(p, [{"model": "MLP-TPU", "class": n, "auc": 0.5}
+                                                for n in names]),
+        "roc": lambda m, p: m.write_roc_points_csv(p, [
+            {"model": "SVM", "class": "block", "fpr": f, "tpr": t, "threshold": h}
+            for f, t, h in zip(fpr, tpr, thr)]),
+        "summary": lambda m, p: m.write_metrics_summary_csv(p, [
+            {"dataset": "after", "model": "MLP", "accuracy": 91.5, "test_loss": 0.25}]),
+        "final": lambda m, p: m.write_final_performance_csv(p, [
+            {"Model": "MLP-TPU", "Accuracy (%)": 99.5, "Precision (%)": 99.0,
+             "Recall (%)": 98.0, "F1-Score (%)": 97.5}]),
+    }
+    for name, call in calls.items():
+        call(P, str(tmp_path / f"ours_{name}.csv"))
+        call(J, str(tmp_path / f"theirs_{name}.csv"))
+        assert (tmp_path / f"ours_{name}.csv").read_bytes() == (
+            tmp_path / f"theirs_{name}.csv").read_bytes(), name
+
+
+def test_report_svg_and_html_equal_the_jax_package(tmp_path):
+    from stutter_tpu import report as J
+    from stutter_tpu_torch import report as P
+
+    rng = np.random.RandomState(3)
+    curves = [{"label": f"m - <c{i}>", "fpr": np.sort(rng.rand(6)), "tpr": np.sort(rng.rand(6)),
+               "auc": float(rng.rand())} for i in range(12)]
+    cm = rng.randint(0, 40, (5, 5))
+    names = ["repetition", "prolongation & co", "block", "interjection", "fluent"]
+    assert P.roc_svg(curves, "ROC (after)") == J.roc_svg(curves, "ROC (after)")
+    assert P.confusion_svg(cm, names, "MLP-TPU") == J.confusion_svg(cm, names, "MLP-TPU")
+    labels, vals = [f"after/model_{i}" for i in range(7)], list(rng.rand(7) * 100)
+    assert P.bar_svg(labels, vals, "Accuracy") == J.bar_svg(labels, vals, "Accuracy")
+    assert P.bar_svg(labels, vals, "Loss", unit="") == J.bar_svg(labels, vals, "Loss", unit="")
+    svgs = [P.bar_svg(labels, vals, "Accuracy"), P.confusion_svg(cm, names, "t")]
+    P.write_html(tmp_path / "ours.html", "Before/After — <Metrics>", svgs)
+    J.write_html(tmp_path / "theirs.html", "Before/After — <Metrics>", svgs)
+    assert (tmp_path / "ours.html").read_bytes() == (tmp_path / "theirs.html").read_bytes()
+
+
+@pytest.mark.parametrize("taxonomy", ["folder", "5class"])
+def test_encode_labels_equals_the_jax_package(taxonomy):
+    from stutter_tpu import data as J
+    from stutter_tpu_torch import data as P
+
+    assert P.DYSFLUENCY_CLASSES_5 == J.DYSFLUENCY_CLASSES_5
+    assert P.CORPUS_LABEL_TO_5CLASS == J.CORPUS_LABEL_TO_5CLASS
+    labels = ["word repetition", "block", "Prolongatio sample", "syllable repetition", "block"]
+    assert P.map_labels_to_5class(labels) == J.map_labels_to_5class(labels)
+    ours, ole = P.encode_labels(labels, taxonomy)
+    theirs, jle = J.encode_labels(labels, taxonomy)
+    assert ours == theirs and ole.classes_ == jle.classes_
+    np.testing.assert_array_equal(ole.transform(ours), jle.transform(theirs))
+    for mod in (P, J):
+        with pytest.raises(ValueError, match="taxonomy"):
+            mod.encode_labels(["tonal"] if taxonomy == "5class" else labels,
+                              "5class" if taxonomy == "5class" else "nope")
+
+
+def _sk_params(model):
+    if hasattr(model, "models"):
+        return [type(model).__name__, [_sk_params(m) for m in model.models]]
+    return [type(model).__name__, model.get_params()]
+
+
+@pytest.mark.parametrize("variant", ["main", "pipeline1"])
+def test_reference_model_zoo_equals_the_jax_package(variant):
+    pytest.importorskip("sklearn")
+    from stutter_tpu.models import host_baselines as J
+    from stutter_tpu_torch.models import host_baselines as P
+
+    ours, theirs = P.reference_model_zoo(variant, 7), J.reference_model_zoo(variant, 7)
+    assert list(ours) == list(theirs)
+    assert [_sk_params(m) for m in ours.values()] == [_sk_params(m) for m in theirs.values()]
+
+
+def test_persist_sklearn_helpers_equal_the_jax_package(tmp_path):
+    """The sklearn exports, the pickle trio and the stale-pickle sweep: the
+    same files and the same fitted state from either package."""
+    pytest.importorskip("joblib")
+    import joblib
+
+    from stutter_tpu import persist as J
+    from stutter_tpu.models.scaler import LabelEncoder as JLE
+    from stutter_tpu.models.scaler import StandardScaler as JSS
+    from stutter_tpu_torch import persist as P
+    from stutter_tpu_torch.models.scaler import LabelEncoder, StandardScaler
+
+    X = np.random.RandomState(4).randn(30, 6).astype(np.float32)
+    X[:, 2] = 1.0  # a constant column: scale 1, variance 0
+    classes = ["block", "fluent", "word repetition"]
+    for mod, ss, le, d in ((P, StandardScaler, LabelEncoder, tmp_path / "ours"),
+                           (J, JSS, JLE, tmp_path / "theirs")):
+        mod.save_sklearn_artifacts(str(d), scaler=ss.fit(X), le=le(classes_=classes), rf=None)
+    assert sorted(os.listdir(tmp_path / "ours")) == sorted(os.listdir(tmp_path / "theirs")) == [
+        "label_encoder.pkl", "scaler_after.pkl"]
+    a, b = (joblib.load(tmp_path / d / "scaler_after.pkl") for d in ("ours", "theirs"))
+    for attr in ("mean_", "scale_", "var_", "n_features_in_", "n_samples_seen_"):
+        np.testing.assert_array_equal(getattr(a, attr), getattr(b, attr))
+    np.testing.assert_array_equal(a.transform(X), b.transform(X))
+    a, b = (joblib.load(tmp_path / d / "label_encoder.pkl") for d in ("ours", "theirs"))
+    np.testing.assert_array_equal(a.classes_, b.classes_)
+    assert list(a.inverse_transform([2, 0])) == ["word repetition", "block"]
+    for mod, d in ((P, tmp_path / "ours"), (J, tmp_path / "theirs")):
+        (d / "model_rf.pkl").write_bytes(b"stale")
+        (d / "model_mlp_tpu.npz").write_bytes(b"kept")
+        mod.clear_stale_artifacts(str(d))
+    assert sorted(os.listdir(tmp_path / "ours")) == sorted(os.listdir(tmp_path / "theirs")) == [
+        "model_mlp_tpu.npz"]

@@ -117,6 +117,31 @@ def test_params_round_trip_in_the_jax_layout(heads, arch):
         np.testing.assert_array_equal(back[k], v)
 
 
+def test_bilstm_exports_its_weights_after_an_optimizer_step():
+    """The LSTM's weights are kept once (in nn.LSTM): after one optimizer
+    step on a requires_grad copy, the export moved, and the JAX
+    apply_cnn_bilstm on it equals the port's forward within 1e-4."""
+    from stutter_tpu.models.cnn_bilstm import apply_cnn_bilstm
+    from stutter_tpu_torch.models.cnn_bilstm import CNNBiLSTM
+
+    params = _jax_params("cnn_bilstm", 12)
+    model = CNNBiLSTM.from_jax_params(params, device="cpu").requires_grad_(True)
+    assert not any(k.startswith("lstm_") for k in model.p)
+    x, mask, nv = _inputs(96, 60, 13)
+    x, mask_t = torch.from_numpy(x), torch.from_numpy(mask)
+    opt = torch.optim.Adam(model.parameters(), lr=0.05)
+    model(x, mask_t, nv).square().sum().backward()
+    opt.step()
+    back = model.to_jax_params()
+    assert sorted(back) == sorted(params)
+    for k in ("lstm_fwd_wx", "lstm_bwd_wh", "lstm_fwd_b", "conv0", "w_out"):
+        assert np.abs(back[k] - params[k]).max() > 1e-3, k  # the step reached the export
+    with torch.no_grad():
+        got = model(x, mask_t, nv).numpy()
+    ref = np.asarray(apply_cnn_bilstm(_jax(back), jnp.asarray(x.numpy()), jnp.asarray(mask)))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+
+
 def _clips():
     rng = np.random.RandomState(11)
     t = np.arange(N) / 16000
