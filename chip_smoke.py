@@ -69,14 +69,36 @@
    run_before_after's and the permutation importance's seconds.  Each
    entry point (preprocess, both run_cv, run_before_after) and the serving
    of the trained model count their launches apart.
-9. Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
+9. Sequence training, on phase 8's corpus (its own numpy seed):
+   run_cv(include_host=False, include_seq=True) trains the five members of
+   the quint at their published widths and recipes, one seed x 5 folds
+   (SEQ_EPOCHS epochs, 30 of the recipe's 80; the wall at 80 is projected
+   from the measured stage times), their nested weighted vote and the
+   refits; checks every <ARCH>-TPU row of FINAL_PERFORMANCE_TABLE.csv >= 80
+   %, Weighted-Vote-TPU >= 90 %, and the JAX package's files and headers.  The trained vote behind
+   EnsemblePredictor.load(device="cuda"): 8 requests (denoise on), each
+   labelled with its corpus class, then the same clips without denoise
+   against the CPU's plain path (labels equal, probabilities within 1e-3).
+   Five fed steps of the CV grid's shape (G = 5, batch 64, t_max 316,
+   published widths, the same draws; mixup on for the log-mel heads) for
+   cnn, cnn_bilstm and transformer equal the CPU's normwise per tensor
+   within 1e-4, or within twice the CPU's own FP32 distance from the same
+   steps in FP64 where that is larger (a zero-initialized bias).
+   train_sequence_model for the cnn checkpointed at half its steps,
+   stopped there and resumed equals an uninterrupted run within 1e-5
+   normwise.  Prints each architecture's CV-grid and refit steps/s
+   (from stage_s), a profiled window of 20 grid steps per architecture
+   (launches and device ms a step, idle share), the peak device memory of
+   a chunk of G = 5 and of G = 25 (--seq-seeds 5), and run_cv's wall
+   seconds and stages.
+10. Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
 
 Phase 2 also holds the kernels at the stream paths' shapes: the vote's
 segment, one [1, 2**20] buffer, through the gate and the mel mode without
 the tuning tail (as the sequence featurizer runs it), and the MLP stream's
 windows, [64, 48128], through the stats mode and chroma_stats.
 
-Each of the paths 3-5, 7 and 8 runs with every launch count set to 0 just
+Each of the paths 3-5 and 7-9 runs with every launch count set to 0 just
 before it and read just after, and fails if a kernel it uses never
 launched.
 
@@ -86,6 +108,7 @@ printed.  Without a CUDA GPU it exits with code 1 at once.
 
 from __future__ import annotations
 
+import csv
 import json
 import os
 import statistics
@@ -111,6 +134,11 @@ KERNELS = {  # kernel (mode) -> (source, the TPU kernel it replaces)
 }
 N_CORPUS, CLASSES = 905, ("block", "fluent", "repetition")
 N_TRAIN = 905  # the training phase's corpus
+# phase 9's epochs: the published recipe's 80 would take the BiLSTM's grid
+# alone ~4 minutes on the card (its loop of packed LSTMs is launch-bound),
+# so the phase runs 30 and prints run_cv's wall projected to 80
+SEQ_EPOCHS = 30
+SEQ_WINDOW = 20  # phase 9's profiled grid steps
 QUINT = {"cnn": 0.2, "cnn_bilstm": 0.15, "transformer": 0.2, "transformer_lr1e3": 0.2,
          "transformer_mix4_lr1e3": 0.25}  # member -> vote weight
 REQUEST_S = (1.5, 3, 3, 3, 3, 5, 6, 10)  # the request mix (s)
@@ -229,6 +257,22 @@ def launch_counts(reset: bool = False) -> dict:
 
 def check_launched(counts: dict, kernels, path: str) -> None:
     check(all(counts[k] > 0 for k in kernels), f"{path}: a kernel never launched: {counts}")
+
+
+def counted_entry(launches: dict, name: str, kernels, fn):
+    """fn() with the launch counts set to 0 just before and read just after
+    into launches[name], each of `kernels` launched -> (its result, its wall
+    seconds)."""
+    import torch
+
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    launches[name] = launch_counts(reset=True)
+    check_launched(launches[name], kernels, name)
+    return out, s
 
 
 def compare_spectromel(rng, dev, B: int, N: int, length: int, timed: bool):
@@ -1036,16 +1080,7 @@ def training_phase(rng, dev, root: str) -> dict:
     cfg = MLPTrainConfig()
 
     def counted(name: str, kernels, fn):
-        """fn() with the launch counts set to 0 just before and read just
-        after -> (its result, its wall seconds)."""
-        launch_counts(reset=True)
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        s = time.perf_counter() - t0
-        res["launches_by_entry"][name] = launch_counts(reset=True)
-        check_launched(res["launches_by_entry"][name], kernels, name)
-        return out, s
+        return counted_entry(res["launches_by_entry"], name, kernels, fn)
 
     def run_cv(dim):
         kernels = ["spectromel", "chroma_stats"] if dim == 149 else ["spectromel_mel"]
@@ -1143,6 +1178,209 @@ def serve_trained(rng, dev, out_dir: str, cfg) -> dict:
     return {"launches": launches, "labels": [r["label"] for r in answers],
             "true": [CLASSES[i % 3] for i in range(len(clips))],
             "cuda_vs_cpu_max_proba_diff": diff}
+
+
+# the files run_cv(include_seq=True) adds to RUN_CV_FILES, and each CSV's header
+SEQ_FILES = {"oof_probas.npz": None, "ensemble_weights.json": None, "ensemble.json": None,
+             **{f"model_{a}{s}": None for a in QUINT for s in (".npz", "_norm.npz", ".json")}}
+SEQ_KERNELS = ("spectromel", "chroma_stats", "spectromel_mel")
+
+
+def seq_grid_parts(arch: str, dev, X, nv, y, G: int, cfg, n_steps: int):
+    """A grid of G entries of `arch` at its published widths (init seeds
+    cfg.seed + g), its trainer, and its steps' inputs on `dev`: the frames
+    X [N, T, D] standardized by one set of stats, every row in every
+    entry's sample, each entry's draws from draw_steps(cfg.seed + g)."""
+    from stutter_tpu_torch.train.seq_pipeline import ARCHS
+    from stutter_tpu_torch.train.seq_trainer import (
+        GridSteps, SeqGrid, SeqGridTrainer, draw_steps, row_targets, standardize_sequences)
+
+    spec = ARCHS[arch]
+    _, mean, std = standardize_sequences(X, nv)
+    seeds = [cfg.seed + g for g in range(G)]
+    grid = SeqGrid(spec["module"], [spec["init_fn"](np.random.RandomState(s),
+                                                    **spec["init_kwargs"](len(CLASSES)))
+                                    for s in seeds], dev)
+    draws = [draw_steps(s, np.ones(len(y)), nv, n_steps, cfg, X.shape[2]) for s in seeds]
+    steps = GridSteps(X, nv, row_targets(y, len(CLASSES), cfg), np.stack([mean] * G),
+                      np.stack([std] * G), draws, seeds, cfg, dev)
+    return grid, SeqGridTrainer(grid, cfg, FED_SCHEDULE), steps
+
+
+def seq_fed_steps(dev, arch: str, X, nv, y, cfg, n_steps: int = 5, dtype=None) -> dict:
+    """n_steps of the CV grid's shape (G = 5) on `dev`, the draws fed, in
+    FP32 (or in `dtype`, weights, data and mixup's lam cast) -> the grid's
+    weights by tensor, [G, ...] numpy in the JAX layout, as float64."""
+    grid, trainer, steps = seq_grid_parts(arch, dev, X, nv, y, 5, cfg, n_steps)
+    if dtype is not None:
+        grid.models.to(dtype)
+        steps.X, steps.mean, steps.std, steps.targets = (
+            t.to(dtype) for t in (steps.X, steps.mean, steps.std, steps.targets))
+        if "lam" in steps.draws:
+            steps.draws["lam"] = steps.draws["lam"].to(dtype)
+    for t in range(n_steps):
+        trainer.step(*steps.batch(t))
+    params = grid.params()
+    return {k: np.stack([p[k] for p in params]).astype(np.float64) for k in params[0]}
+
+
+def seq_training_phase(rng, dev, root: str) -> dict:
+    """Phase 9: run_cv with the quint on the card over phase 8's corpus,
+    the trained vote served, fed steps and a checkpoint resume against
+    references, a profiled window of grid steps, peak memory.  Each entry
+    point's launches are counted from just before it to just after it."""
+    import shutil
+
+    import torch
+
+    from stutter_tpu_torch import pipeline
+    from stutter_tpu_torch.config import PipelineConfig
+    from stutter_tpu_torch.infer import EnsemblePredictor
+    from stutter_tpu_torch.train.seq_pipeline import (
+        ARCHS, default_train_cfg, load_corpus_clips)
+    from stutter_tpu_torch.train.seq_trainer import (
+        prepare_sequence_dataset, standardize_sequences, train_sequence_model)
+    from stutter_tpu_torch.train.trainer import total_steps
+
+    cfg = PipelineConfig()
+    out_dir = os.path.join(root, cfg.data.output_dir)
+    res = {"epochs": SEQ_EPOCHS, "launches_by_entry": {}}
+
+    # phase 8 cached the features: run_cv extracts them anew, as on a fresh
+    # workspace, so the 149-dim kernels run in this entry point too
+    shutil.rmtree(os.path.join(root, cfg.data.cache_dir), ignore_errors=True)
+    cv, s = counted_entry(
+        res["launches_by_entry"], "run_cv_seq", SEQ_KERNELS,
+        lambda: pipeline.run_cv(root, cfg, include_host=False, include_seq=True,
+                                seq_epochs=SEQ_EPOCHS, device=dev))
+    stages = cv["stage_s"]
+    with open(os.path.join(out_dir, "FINAL_PERFORMANCE_TABLE.csv")) as f:
+        rows = {r["Model"]: float(r["Accuracy (%)"]) for r in csv.DictReader(f)}
+    n = sum(len(te) for _, te in cv["folds"])
+    n_cv = max(len(tr) for tr, _ in cv["folds"])
+    res["run_cv_seq"] = {"s": s, "stage_s": stages, "rows": cv["final_rows"], "steps_per_s": {
+        a: {"cv_grid": total_steps(default_train_cfg(a, SEQ_EPOCHS), n_cv) / stages[f"seq_cv_{a}"],
+            "refit": total_steps(default_train_cfg(a, SEQ_EPOCHS), n) / stages[f"seq_fit_{a}"]}
+        for a in QUINT}}
+    # the wall at the recipe's 80 epochs: the grids' and refits' stages
+    # scaled by 80 / SEQ_EPOCHS (their featurization too: an upper bound)
+    grids = sum(v for k, v in stages.items() if k.startswith(("seq_cv_", "seq_fit_")))
+    res["run_cv_seq"]["projected_80_epochs_s"] = s + grids * (80 / SEQ_EPOCHS - 1)
+    check(all(rows[f"{a.upper()}-TPU"] >= 80 for a in QUINT) and rows["Weighted-Vote-TPU"] >= 90,
+          f"run_cv --seq: CV accuracy {rows}")
+    check_files(out_dir, {**RUN_CV_FILES, **SEQ_FILES}, "run_cv --seq")
+    with np.load(os.path.join(out_dir, "oof_probas.npz")) as z:
+        check(sorted(z) == sorted(["y", "fold_of"] + [f"proba_{a}" for a in QUINT]),
+              f"oof_probas.npz keys {sorted(z)}")
+    with open(os.path.join(out_dir, "ensemble.json")) as f:
+        ens = json.load(f)
+    check(sorted(ens["weights"]) == sorted(QUINT) and ens["classes"] == list(CLASSES),
+          f"ensemble.json {ens}")
+    res["vote_weights"] = ens["weights"]
+
+    # the trained vote served: the request mix, denoised, each its class;
+    # then without denoise against the CPU's plain path
+    clips = [train_clip(rng, i, int(d * SR), SR) for i, d in enumerate(REQUEST_S)]
+    ens_card = EnsemblePredictor.load(out_dir, device=dev)
+    ens_cpu = EnsemblePredictor.load(out_dir, device="cpu")
+    launch_counts(reset=True)
+    answers = [ens_card.predict_clip(y) for y in clips]
+    diff = 0.0
+    for i, (y, r) in enumerate(zip(clips, answers)):
+        check_answer(r, "trained vote")
+        check(r["label"] == CLASSES[i % 3], f"trained vote: request {i} of class "
+              f"{CLASSES[i % 3]} labelled {r}")
+        a, b = ens_card.predict_clip(y, denoise=False), ens_cpu.predict_clip(y, denoise=False)
+        diff = max(diff, proba_diff(a, b))
+        check(a["label"] == b["label"] and diff < 1e-3, f"trained vote cuda vs cpu: {a} {b}")
+    launches = launch_counts(reset=True)
+    check_launched(launches, ["spectral_gate", "spectromel_mel"], "trained vote served")
+    res["serve"] = {"launches": launches, "labels": [r["label"] for r in answers],
+                    "cuda_vs_cpu_max_proba_diff": diff}
+    res["launches"] = {k: sum(c[k] for c in res["launches_by_entry"].values()) for k in KERNELS}
+    del ens_card, ens_cpu
+
+    # the corpus's frames, for the fed steps, the resume, the window and memory
+    seq_clips, labels = load_corpus_clips(root, cfg, device=dev)
+    y = np.asarray([CLASSES.index(l) for l in labels])
+    frames = {kind: prepare_sequence_dataset(seq_clips, kind, device=dev)
+              for kind in ("logmel", "mfcc_deltas")}
+    archs = ("cnn", "cnn_bilstm", "transformer")
+    # fed steps, card vs CPU.  Five Adam steps carry FP32's rounding into
+    # each update, and a zero-initialized bias is nothing but its updates,
+    # so the CPU's own FP32 weights lie up to ~2e-4 normwise from the same
+    # steps in FP64 on such tensors (and <1e-5 on the others): each tensor
+    # is held to the larger of 1e-4 and twice that distance, both reported
+    res["fed_steps"] = {}
+    cpu = torch.device("cpu")
+    for arch in archs:
+        X, nv = frames[ARCHS[arch]["kind"]]
+        tc = default_train_cfg(arch, SEQ_EPOCHS)  # mixup 0.2 on the log-mel heads
+        on_card = seq_fed_steps(dev, arch, X, nv, y, tc)
+        on_cpu = seq_fed_steps(cpu, arch, X, nv, y, tc)
+        exact = seq_fed_steps(cpu, arch, X, nv, y, tc, dtype=torch.float64)
+        errs = {k: {**step_errors(on_card[k], v),
+                    "cpu_fp32_vs_fp64": step_errors(v, exact[k])["rel"]}
+                for k, v in on_cpu.items()}
+        over = {k: e for k, e in errs.items() if e["rel"] >= max(1e-4, 2 * e["cpu_fp32_vs_fp64"])}
+        res["fed_steps"][arch] = {"max_rel": max(e["rel"] for e in errs.values()),
+                                  "max_elem_rel": max(e["max_elem_rel"] for e in errs.values()),
+                                  "max_cpu_fp32_vs_fp64": max(e["cpu_fp32_vs_fp64"]
+                                                              for e in errs.values()),
+                                  "over_bound": sorted(over), "by_tensor": errs}
+        check(not over, f"{arch} fed steps card vs cpu: {over}")
+
+    # checkpoint resume: stopped at half its steps (the later checkpoint
+    # gone), resumed, against an uninterrupted run
+    X, nv = frames["logmel"]
+    Xs = standardize_sequences(X, nv)[0]
+    tc = default_train_cfg("cnn", 2)
+    half = total_steps(tc, len(y)) // 2
+    args = (ARCHS["cnn"]["module"], ARCHS["cnn"]["init_fn"], Xs, nv, y, len(CLASSES), tc,
+            ARCHS["cnn"]["init_kwargs"](len(CLASSES)))
+    whole = train_sequence_model(*args, device=dev)
+    ck = os.path.join(root, "ckpt_resume")
+    train_sequence_model(*args, ckpt_dir=ck, ckpt_every=half, device=dev)
+    os.remove(os.path.join(ck, f"step_{2 * half}.pt"))
+    resumed = train_sequence_model(*args, ckpt_dir=ck, ckpt_every=half, device=dev)
+    shutil.rmtree(ck)
+    res["resume"] = {"steps": 2 * half, "resumed_at": half, "by_tensor": {
+        k: step_errors(resumed[k], v) for k, v in whole.items()}}
+    res["resume"]["max_rel"] = max(e["rel"] for e in res["resume"]["by_tensor"].values())
+    check(res["resume"]["max_rel"] < 1e-5, f"checkpoint resume: {res['resume']}")
+
+    # a profiled window of 20 grid steps per architecture (the CV grid's
+    # shape), then the peak memory of 2 steps at G = 5 and G = 25
+    window = SEQ_WINDOW
+    res["profile_steps"], res["peak_memory_gb"] = {}, {}
+    for arch in archs:
+        X, nv = frames[ARCHS[arch]["kind"]]
+        tc = default_train_cfg(arch, SEQ_EPOCHS)
+        _, trainer, steps = seq_grid_parts(arch, dev, X, nv, y, 5, tc, window + 1)
+        trainer.step(*steps.batch(window))
+
+        def run(trainer=trainer, steps=steps):
+            for t in range(window):
+                trainer.step(*steps.batch(t))
+
+        prof = device_profile(run, reps=1)
+        res["profile_steps"][arch] = {
+            **prof, "steps": window, "ms_per_step": prof["wall_ms"] / window,
+            "device_ms_per_step": prof["device_ms"] / window,
+            "launches_per_step": prof["launches"] / window}
+        del trainer, steps
+        res["peak_memory_gb"][arch] = {}
+        for G in (5, 25):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _, trainer, steps = seq_grid_parts(arch, dev, X, nv, y, G, tc, 2)
+            for t in range(2):
+                trainer.step(*steps.batch(t))
+            torch.cuda.synchronize()
+            res["peak_memory_gb"][arch][f"G{G}"] = torch.cuda.max_memory_allocated() / 1e9
+            del trainer, steps
+    torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:
@@ -1258,9 +1496,11 @@ def main() -> int:
           f"vote {mmm(head['stream_vote']['windows_per_s'])}, MLP "
           f"{mmm(head['stream_mlp']['windows_per_s'])} windows/s a pass ({card})")
 
-    with tempfile.TemporaryDirectory() as root:  # phase 8: training, its own generator
+    with tempfile.TemporaryDirectory() as root:  # phases 8 and 9: training, own generators
         train = training_phase(np.random.RandomState(6), dev, root)
-    print(f"training: {json.dumps(train)}")
+        print(f"training: {json.dumps(train)}")
+        seq = seq_training_phase(np.random.RandomState(7), dev, root)
+    print(f"sequence training: {json.dumps(seq)}")
 
     cv149, cv286, prof = train["run_cv_149"], train["run_cv_286"], train["profile_steps"]
     print(f"training: run_cv {cv149['s']:.1f} s wall at 149 dims ({cv286['s']:.1f} at 286), "
@@ -1274,6 +1514,28 @@ def main() -> int:
           f"s; permutation importance {cv149['stage_s']['mlp_importance']:.3f} s "
           f"({cv286['stage_s']['mlp_importance']:.3f}) ({card})")
 
+    cvs, sp = seq["run_cv_seq"], seq["profile_steps"]
+    acc = {r["Model"]: r["Accuracy (%)"] for r in cvs["rows"]}
+    print(f"sequence training: run_cv --seq {cvs['s']:.1f} s wall at {SEQ_EPOCHS} epochs "
+          f"(projected to 80 epochs: at most {cvs['projected_80_epochs_s']:.0f} s); "
+          + "; ".join(f"{a} CV {acc[a.upper() + '-TPU']:.1f} %, grid {v['cv_grid']:.1f} "
+                      f"steps/s, refit {v['refit']:.1f} steps/s"
+                      for a, v in cvs["steps_per_s"].items())
+          + f"; vote CV {acc['Weighted-Vote-TPU']:.1f} % ({card})")
+    for arch, p in sp.items():
+        print(f"sequence training: {arch} grid G=5 over {p['steps']} steps: "
+              f"{p['ms_per_step']:.2f} ms, {p['device_ms_per_step']:.3f} ms of device time and "
+              f"{p['launches_per_step']:.0f} launches a step, the card idle "
+              f"{100 * p['idle_share']:.1f} %; peak memory G=5 "
+              f"{seq['peak_memory_gb'][arch]['G5']:.2f} GB, G=25 "
+              f"{seq['peak_memory_gb'][arch]['G25']:.2f} GB ({card})")
+    print(f"sequence training: fed steps card vs cpu (normwise) "
+          + ", ".join(f"{a} {v['max_rel']:.2e} (element {v['max_elem_rel']:.2e}; the cpu's "
+                      f"fp32 vs fp64 up to {v['max_cpu_fp32_vs_fp64']:.2e})"
+                      for a, v in seq["fed_steps"].items())
+          + f"; checkpoint resume {seq['resume']['max_rel']:.2e}; trained vote served, "
+          f"cuda vs cpu {seq['serve']['cuda_vs_cpu_max_proba_diff']:.2e} ({card})")
+
     profiles.update(profile_batches(rng, dev))  # phase 6: where the device time goes
     for name, prof in profiles.items():
         print(f"profile {name}: {json.dumps(prof)} ({card})")
@@ -1282,7 +1544,8 @@ def main() -> int:
     paths = [serve["launches"], serve286["launches"], *corpus["launches"].values(),
              head["launches_predict_clip"], head["launches_predict_batch"],
              head["stream_vote"]["launches_one_pass"], head["stream_mlp"]["launches_one_pass"],
-             head["launches_http"], train["launches"], train["serve"]["launches"]]
+             head["launches_http"], train["launches"], train["serve"]["launches"],
+             seq["launches"], seq["serve"]["launches"]]
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
     # (name, max abs error, batch-shape result, request-shape result,
     # stream-shape result); no single PyTorch call computes any of these

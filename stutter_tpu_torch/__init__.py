@@ -8,7 +8,9 @@ softmax, or log-mel / MFCC frames -> the CNN, CNN-BiLSTM and transformer
 heads -> their weighted vote (the headline model), per clip, per
 micro-batch, over a stream of windows or behind the HTTP service; its
 corpus path denoises the corpus with per-file QC metrics (`preprocess`)
-and builds the feature cache (`extract_corpus`).  The
+and builds the feature cache (`extract_corpus`); its training path trains
+the feature MLP (engines A and B) and the sequence heads' folds x seeds
+grids, their nested weighted vote and the servable quint (`run_cv`).  The
 Pallas kernels of these paths are hand-written CUDA here (`csrc/*.cu`),
 built with nvcc at first use; each has a plain PyTorch version that runs
 for CPU tensors.  Nothing in this package imports JAX or the JAX package:
@@ -21,6 +23,9 @@ Public surface (lazily imported; `import stutter_tpu_torch as stt`):
   stt.extract_features_numpy                                 the front end
   stt.denoise_clips / stt.denoise_batch                      spectral gate
   stt.preprocess / stt.extract_corpus                        the corpus path
+  stt.run_cv / stt.run_before_after                          training drivers
+  stt.fit_mlp / stt.cross_validate_mlp                       the MLP's training
+  stt.cross_validate_seq / stt.nested_weighted_vote          seq heads + stacking
   stt.Predictor / stt.SeqPredictor / stt.EnsemblePredictor  serving: the MLP,
                                                              a head, the vote
   stt.serve                                                  the HTTP service
@@ -39,6 +44,12 @@ _LAZY = {
     "denoise_batch": ("stutter_tpu_torch.denoise", "denoise_batch"),
     "preprocess": ("stutter_tpu_torch.pipeline", "preprocess"),
     "extract_corpus": ("stutter_tpu_torch.pipeline", "extract_corpus"),
+    "run_cv": ("stutter_tpu_torch.pipeline", "run_cv"),
+    "run_before_after": ("stutter_tpu_torch.pipeline", "run_before_after"),
+    "fit_mlp": ("stutter_tpu_torch.train.trainer", "fit_mlp"),
+    "cross_validate_mlp": ("stutter_tpu_torch.train.trainer", "cross_validate_mlp"),
+    "cross_validate_seq": ("stutter_tpu_torch.train.seq_pipeline", "cross_validate_seq"),
+    "nested_weighted_vote": ("stutter_tpu_torch.train.ensemble", "nested_weighted_vote"),
     "Predictor": ("stutter_tpu_torch.infer", "Predictor"),
     "SeqPredictor": ("stutter_tpu_torch.infer", "SeqPredictor"),
     "EnsemblePredictor": ("stutter_tpu_torch.infer", "EnsemblePredictor"),

@@ -3,7 +3,9 @@
   python -m stutter_tpu_torch preprocess   --root WORKDIR   # clean + QC csv
   python -m stutter_tpu_torch extract      --root WORKDIR [--suffix raw|clean|both]
   python -m stutter_tpu_torch train        --root WORKDIR [--no-host] [--features F] [--labels L]
+                                           [--seq [--seq-seeds N] [--ensemble-mlp M] ...]
   python -m stutter_tpu_torch train-ab     --root WORKDIR   # before/after cleaning (engine A)
+  python -m stutter_tpu_torch train-seq    --root WORKDIR [--arch A] [--epochs E] [--ckpt]
   python -m stutter_tpu_torch predict FILE --root WORKDIR [--no-denoise] [--arch ARCH]
   python -m stutter_tpu_torch stream  FILE --root WORKDIR [--window S --hop S] [--arch mlp|ensemble]
   python -m stutter_tpu_torch serve        --root WORKDIR [--port P] [--ensemble] [--seq-arch A]
@@ -14,9 +16,12 @@ attenuation: 1.0 is the pipeline1 protocol and the default, 0.8 the main.py
 protocol) and --device {cuda,cpu} (cuda, the default, raises when there is
 no GPU).  The workspace layout and every file written are the JAX
 package's (`python -m stutter_tpu`), so the two CLIs share workspaces.
-`train` is engine B for the feature MLP (5-fold CV table, the persisted
-model, permutation importance) and the sklearn zoo where sklearn is
-installed; the sequence heads' flags (--seq ...) are not ported yet.
+`train` is engine B: the feature MLP (5-fold CV table, the persisted
+model, permutation importance), the sklearn zoo where sklearn is
+installed, and with --seq the sequence heads' CV grids, their weighted
+vote and the servable quint (refit heads + ensemble.json).  `train-seq`
+trains one sequence head on the 80/20 split, --ckpt checkpointing and
+resuming its training state (the port's own torch.save format, not Orbax).
 """
 
 from __future__ import annotations
@@ -49,11 +54,41 @@ def main(argv: list[str] | None = None) -> int:
     add_common(p)
     p.add_argument("--no-host", action="store_true", help="skip the sklearn baselines")
     p.add_argument("--features", default="clean", choices=["clean", "raw", "both"])
-    p.add_argument("--labels", default="folder", choices=["folder", "5class"],
-                   help="label taxonomy: corpus folders or the 5-class dysfluency set")
-    add_common(sub.add_parser("train-ab", help="before/after cleaning comparison (engine A)"))
     seq_archs = ["cnn", "cnn_bilstm", "transformer", "transformer_lr1e3",
                  "transformer_mix4_lr1e3"]
+    p.add_argument("--seq", action="store_true",
+                   help="also CV the CNN/CNN-BiLSTM/transformer heads")
+    p.add_argument("--seq-seeds", type=int, default=1,
+                   help="soft-vote the sequence heads over N seeds (at Nx the training cost)")
+    p.add_argument("--labels", default="folder", choices=["folder", "5class"],
+                   help="label taxonomy: corpus folders or the 5-class dysfluency set")
+    p.add_argument("--ensemble-mlp", default="none", choices=["none", "both", "clean"],
+                   help="MLP member of the weighted vote: none (default), raw+clean "
+                        "concatenation, or clean-only")
+    p.add_argument("--seq-tta-crop", type=int, default=0,
+                   help="prediction-time augmentation comparison: also score each seq head "
+                        "and the vote with start/end-cropped views of this many frames "
+                        "averaged in (extra +TTA rows; artifacts stay baseline)")
+    p.add_argument("--seq-balanced", action="store_true",
+                   help="train sequence members with inverse-class-frequency minibatch "
+                        "sampling (a macro-recall knob; not the production default)")
+    p.add_argument("--seq-raw-arch", action="append", default=[], choices=seq_archs,
+                   help="diversity probe: also train this arch on the raw (pre-denoise) "
+                        "decode of the same clips as a vote member '<arch>_raw'; repeatable; "
+                        "probe-only (use a scratch workspace: not servable)")
+    add_common(sub.add_parser("train-ab", help="before/after cleaning comparison (engine A)"))
+    p = sub.add_parser("train-seq", help="train one sequence head (CNN / CNN-BiLSTM / "
+                                         "transformer)")
+    add_common(p)
+    p.add_argument("--arch", default="cnn_bilstm", choices=seq_archs)
+    p.add_argument("--epochs", type=int, default=80)
+    p.add_argument("--mixup", type=float, default=None,
+                   help="mixup alpha (default: the arch's recipe, 0.2 for the log-mel "
+                        "heads, 0.0 for cnn_bilstm)")
+    p.add_argument("--ckpt", action="store_true",
+                   help="checkpoint the training state and resume from it")
+    p.add_argument("--labels", default="folder", choices=["folder", "5class"],
+                   help="label taxonomy: corpus folders or the 5-class dysfluency set")
     p = sub.add_parser("predict", help="classify one audio file")
     add_common(p)
     p.add_argument("file")
@@ -115,7 +150,11 @@ def main(argv: list[str] | None = None) -> int:
 
         setup_logging(out_dir)
         res = run_cv(args.root, cfg, include_host=not args.no_host, feature_set=args.features,
-                     labels_taxonomy=args.labels, device=args.device)
+                     include_seq=args.seq, labels_taxonomy=args.labels,
+                     seq_seeds=args.seq_seeds, ensemble_mlp=args.ensemble_mlp,
+                     seq_tta_crops=(args.seq_tta_crop,) if args.seq_tta_crop else (),
+                     seq_raw_archs=tuple(args.seq_raw_arch),
+                     seq_class_balanced=args.seq_balanced, device=args.device)
         for row in res["final_rows"]:
             print(f'{row["Model"]:14s} acc={row["Accuracy (%)"]:.1f}% '
                   f'P={row["Precision (%)"]:.1f} R={row["Recall (%)"]:.1f} '
@@ -127,6 +166,16 @@ def main(argv: list[str] | None = None) -> int:
         for m in run_before_after(args.root, cfg, device=args.device)["metrics"]:
             print(f'{m["dataset"]:7s} {m["model"]:14s} acc={m["accuracy"]:.2f}% '
                   f'loss={m["test_loss"]:.4f}')
+    elif args.cmd == "train-seq":
+        from stutter_tpu_torch.train.seq_pipeline import default_train_cfg, run_seq
+
+        tc = default_train_cfg(args.arch, args.epochs)
+        if args.mixup is not None:
+            tc = dataclasses.replace(tc, mixup_alpha=args.mixup)
+        res = run_seq(args.root, args.arch, cfg, tc, ckpt=args.ckpt,
+                      labels_taxonomy=args.labels, device=args.device)
+        print(f'{res["arch"]}: acc={res["accuracy"]:.1f}% loss={res["test_loss"]:.3f} '
+              f'[{res["elapsed_s"]:.0f}s]')
     elif args.cmd == "predict":
         from stutter_tpu_torch.infer import EnsemblePredictor, Predictor, SeqPredictor
 

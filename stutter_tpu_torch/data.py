@@ -6,13 +6,21 @@ stutter_tpu/data.py; the parts the port's corpus and training paths use).
   * cached features are cache_features/<stem>_{raw|clean}_feats.npy,
     float32, shape (149,), keyed by STEM ONLY (ref: pipeline1.py:429-440);
     other feature lengths get a `_d<len>` tag, so the two packages share a
-    workspace file for file.
+    workspace file for file
+  * 16 of the reference's 905 stems occur in more than one class folder;
+    the stem-keyed cache aliases those across classes (the first-written
+    vector wins), and `find_stem_collisions` lists them
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from pathlib import Path
+
+import numpy as np
+
+from stutter_tpu_torch.config import DataConfig
 
 # The 5-class dysfluency taxonomy from BASELINE.json's north star; the
 # committed corpus covers three of these (its folder names map as below).
@@ -79,3 +87,53 @@ def cache_path(cache_dir: str, audio_path: str, suffix: str, feature_len: int = 
     stem = Path(audio_path).stem
     tag = "" if feature_len == 149 else f"_d{feature_len}"
     return os.path.join(cache_dir, f"{stem}_{suffix}_feats{tag}.npy")
+
+
+def find_stem_collisions(root: str) -> dict[str, list[str]]:
+    """Stems that appear under more than one class folder (cache-aliasing hazard)."""
+    seen: dict[str, set[str]] = {}
+    for f in list_audio_files(root):
+        seen.setdefault(Path(f).stem, set()).add(label_of(f))
+    return {s: sorted(ls) for s, ls in seen.items() if len(ls) > 1}
+
+
+def load_cached_corpus(
+    data: DataConfig | None = None,
+    root: str | None = None,
+    suffixes: tuple[str, ...] = ("raw", "clean"),
+    feature_len: int = 149,
+) -> dict:
+    """Walk the corpus and assemble X matrices from the feature cache.
+
+    Mirrors the reference's training-data assembly (pipeline1.py:447-456):
+    one row per audio file in sorted order; rows whose cache entry is missing
+    get zeros (loaders that can decode should call the extractor for misses
+    instead).
+
+    Returns {"files": [...], "labels": [...], "X_<suffix>": np.ndarray,
+    "missing_<suffix>": int}.
+    """
+    data = data or DataConfig()
+    root = root or "."
+    cache_dir = os.path.join(root, data.cache_dir)
+    files = list_audio_files(os.path.join(root, data.data_dir), data.audio_exts)
+    out: dict = {"files": files, "labels": [label_of(f) for f in files]}
+    for suffix in suffixes:
+        X = np.zeros((len(files), feature_len), np.float32)
+        missing = 0
+        for i, f in enumerate(files):
+            p = cache_path(cache_dir, f, suffix)
+            if os.path.exists(p):
+                v = np.load(p)
+                X[i, : min(len(v), feature_len)] = v[:feature_len]
+            else:
+                missing += 1
+        out[f"X_{suffix}"] = X
+        out[f"missing_{suffix}"] = missing
+        if missing:
+            logging.getLogger("stutter_tpu_torch.data").warning(
+                "load_cached_corpus: %d/%d %r cache entries missing -- those "
+                "rows are ZEROS; run `extract` (or drop them) before training",
+                missing, len(files), suffix,
+            )
+    return out

@@ -70,7 +70,17 @@ class CNNBiLSTM(Params):
                 getattr(self.lstm, f"weight_hh_l0{sfx}").copy_(params[f"lstm_{d}_wh"].T)
                 getattr(self.lstm, f"bias_ih_l0{sfx}").copy_(params[f"lstm_{d}_b"])
                 getattr(self.lstm, f"bias_hh_l0{sfx}").copy_(self._forget())
-        self.lstm.requires_grad_(False)
+        self.requires_grad_(False)
+
+    def requires_grad_(self, requires_grad: bool = True) -> "CNNBiLSTM":
+        """Gradients on or off for every weight but `bias_hh`: the JAX
+        scan has one bias per direction (`bias_ih` here), and `bias_hh`
+        holds only its forget +1, which a step must not move (a trained
+        `bias_hh` would take the bias's gradient a second time)."""
+        super().requires_grad_(requires_grad)
+        for _, sfx in _DIRECTIONS:
+            getattr(self.lstm, f"bias_hh_l0{sfx}").requires_grad_(False)
+        return self
 
     def _forget(self) -> torch.Tensor:
         """The JAX scan's +1 on the forget gate (gates i, f, g, o); nn.LSTM

@@ -1,11 +1,18 @@
 """Pieces the sequence heads share: XLA's 'SAME' padding, a parameter
-store in the JAX package's names, and the masked mean pool.
+store in the JAX package's names (and its stacked form, members of one
+architecture side by side), and the masked mean pool.
 
 XLA pads a stride-s, width-k 'SAME' convolution by
 max((ceil(T / s) - 1) * s + k - T, 0) in total, the smaller half before:
 (0, 1) for k = 3 and (1, 2) for k = 5 at an even T.  PyTorch's
 `padding=k // 2` gives the same output length on a grid shifted by one,
 so the heads pad explicitly with `F.pad`.
+
+The stacked heads (the CNN, the transformer) run each convolution as
+patches @ kernel, one batched product per layer (`conv_same_stacked`):
+each member's result, forward and backward, is then the same whatever the
+member count -- a grouped convolution's is not -- so a training grid's
+entry trains as it would alone, and the kernels keep the JAX layout.
 """
 
 from __future__ import annotations
@@ -26,15 +33,35 @@ def same_pad(n: int, k: int, stride: int = 2) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def conv1d_same(x: torch.Tensor, w: torch.Tensor, groups: int = 1) -> torch.Tensor:
-    """x [B, C, T], w [O, C / groups, k] -> [B, O, ceil(T / 2)], stride 2."""
-    return F.conv1d(F.pad(x, same_pad(x.shape[-1], w.shape[-1])), w, stride=2, groups=groups)
+def conv1d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B, C, T], w [O, C, k] -> [B, O, ceil(T / 2)], stride 2."""
+    return F.conv1d(F.pad(x, same_pad(x.shape[-1], w.shape[-1])), w, stride=2)
+
+
+def conv_same_stacked(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Each member's stride-2 'SAME' convolution over the spatial axes of
+    channels-last x [M, B, *spatial, C] with its kernel in JAX's layout, w
+    [M, *k, C, O] (HWIO, WIO) -> [M, B, *ceil(spatial / 2), O]."""
+    M, B, *spatial, _ = x.shape
+    ks = w.shape[1:-2]
+    pad = []
+    for n, k in reversed(list(zip(spatial, ks))):
+        pad += same_pad(n, k)
+    x = F.pad(x, (0, 0, *pad))
+    for d, k in enumerate(ks):
+        x = x.unfold(2 + d, k, 2)  # the window axes land last, after C
+    x = x.movedim(2 + len(ks), -1)  # [M, B, *out, *k, C]
+    out = x.shape[2 : 2 + len(ks)]
+    y = torch.matmul(x.reshape(M, B, -1, w[0, ..., 0].numel()),
+                     w.reshape(M, 1, -1, w.shape[-1]))
+    return y.reshape(M, B, *out, w.shape[-1])
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """x [..., B, T, D], mask [B, T] -> [..., B, D]: the mean over valid
-    frames, the count clamped at 1 (the heads' pool)."""
-    w = mask.to(x.dtype)[:, :, None]
+    """x [..., B, T, D], mask [B, T] (or one per member, [M, B, T]) ->
+    [..., B, D]: the mean over valid frames, the count clamped at 1 (the
+    heads' pool)."""
+    w = mask.to(x.dtype)[..., None]
     return (x * w).sum(-2) / torch.clamp_min(w.sum(-2), 1.0)
 
 
@@ -88,3 +115,42 @@ class Params(nn.Module):
                 v = v.permute(*range(self.lead), *(self.lead + i for i in inv))
             out[k] = v.detach().cpu().numpy()
         return out
+
+
+class StackedParams(Params):
+    """A head whose every weight carries a leading member axis [M, ...], so
+    that members of one architecture with weights of the same shapes run
+    as one batched forward: the serving vote's three transformer recipes,
+    or the G entries of a training grid.  A single member is M = 1."""
+
+    lead = 1
+
+    @classmethod
+    def from_jax_params(cls, params: dict, device: torch.device | str = "cuda"):
+        """From one member's JAX weights (M = 1); `stack` joins members."""
+        return super().from_jax_params({k: np.asarray(v, np.float32)[None]
+                                        for k, v in params.items()}, device)
+
+    @classmethod
+    def stack(cls, models: list["StackedParams"]) -> "StackedParams":
+        """One module running every member of `models`, in that order."""
+        return cls({k: torch.cat([m.p[k].detach() for m in models]) for k in models[0].p})
+
+    @property
+    def n_members(self) -> int:
+        return int(self.p["w_out"].shape[0])
+
+    def members_jax_params(self) -> list[dict[str, np.ndarray]]:
+        """Every member's weights in the JAX package's names and layout."""
+        stacked = super().to_jax_params()
+        return [{k: v[m] for k, v in stacked.items()} for m in range(self.n_members)]
+
+    def to_jax_params(self, member: int = 0) -> dict[str, np.ndarray]:
+        """One member's weights in the JAX package's names and layout."""
+        return self.members_jax_params()[member]
+
+
+def member_mask(mask: torch.Tensor) -> torch.Tensor:
+    """A frame mask shared by the members, [B, T], or one per member,
+    [M, B, T] -> [1 or M, B, T]."""
+    return mask[None] if mask.ndim == 2 else mask

@@ -8,10 +8,10 @@ masked with -1e9; tanh GELU; layer norm with the biased variance and eps
 
 Every weight carries a leading member axis [M, ...], so members of this
 architecture with weights of the same shapes (the quint's three
-transformer recipes) run as one batched forward: the stem as one grouped
-convolution, the blocks as batched products -- the counterpart of the JAX
-package's vmapped stack (stutter_tpu/infer.py:_member_forwards).  A single
-member is M = 1.
+transformer recipes, a training grid's entries) run as one batched
+forward: the stem and the blocks as batched products -- the counterpart of
+the JAX package's vmapped stack (stutter_tpu/infer.py:_member_forwards).
+A single member is M = 1.
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from stutter_tpu_torch.models.layers import Params, conv1d_same, masked_mean
+from stutter_tpu_torch.models.layers import (StackedParams, conv_same_stacked, masked_mean,
+                                              member_mask)
 
 N_HEADS = 4
 
@@ -67,29 +68,7 @@ def sin_pos(T: int, D: int, device) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-class Transformer(Params):
-    layouts = {r"stem\d+": (2, 1, 0)}  # WIO -> OIW, after the member axis
-    lead = 1
-
-    @classmethod
-    def from_jax_params(cls, params: dict, device: torch.device | str = "cuda") -> "Transformer":
-        """From one member's JAX weights (M = 1); `stack` joins members."""
-        return super().from_jax_params({k: np.asarray(v, np.float32)[None]
-                                        for k, v in params.items()}, device)
-
-    @classmethod
-    def stack(cls, models: list["Transformer"]) -> "Transformer":
-        """One module running every member of `models`, in that order."""
-        return cls({k: torch.cat([m.p[k] for m in models]) for k in models[0].p})
-
-    @property
-    def n_members(self) -> int:
-        return int(self.p["w_out"].shape[0])
-
-    def to_jax_params(self, member: int = 0) -> dict[str, np.ndarray]:
-        """One member's weights in the JAX package's names and layout."""
-        return {k: v[member] for k, v in super().to_jax_params().items()}
-
+class Transformer(StackedParams):
     def _layernorm(self, x, name):
         g, b = self.p[f"{name}_g"], self.p[f"{name}_b"]
         return F.layer_norm(x, x.shape[-1:], eps=1e-6) * g[:, None, None] + b[:, None, None]
@@ -99,27 +78,23 @@ class Transformer(Params):
 
     def forward(self, spec: torch.Tensor, mask: torch.Tensor, n_valid=None) -> torch.Tensor:
         """spec [M, B, T, n_mels] (each member's standardized log-mel), mask
-        [B, T] -> logits [M, B, C]; for M = 1 also spec [B, T, n_mels] ->
-        [B, C]."""
+        [B, T] or one per member [M, B, T] -> logits [M, B, C]; for M = 1
+        also spec [B, T, n_mels] -> [B, C]."""
         if spec.ndim == 3:
             return self.forward(spec[None], mask)[0]
         M, B = spec.shape[:2]
+        mask = member_mask(mask)  # [1 or M, B, T]
         x = spec
         for i in range(2):
-            x = x * mask.to(x.dtype)[None, :, :, None]
-            w = self.p[f"stem{i}"]  # [M, d, c_in, 5]
-            c_in, d = x.shape[-1], w.shape[1]
-            # the members side by side in channels: one grouped convolution
-            xc = x.permute(1, 0, 3, 2).reshape(B, M * c_in, -1)
-            xc = conv1d_same(xc, w.reshape(M * d, c_in, -1), groups=M)
-            x = xc.reshape(B, M, d, -1).permute(1, 0, 3, 2)  # [M, B, T', d]
+            x = x * mask.to(x.dtype)[..., None]
+            x = conv_same_stacked(x, self.p[f"stem{i}"])  # [M, B, T', d]
             x = torch.relu(x + self.p[f"stem{i}_b"][:, None, None])
-            mask = mask[:, ::2]
+            mask = mask[..., ::2]
 
         T, D = x.shape[2:]
         H, dh = N_HEADS, D // N_HEADS
         x = x + sin_pos(T, D, x.device)
-        keep = mask[None, :, None, None, :]  # padded keys leave every row
+        keep = mask[:, :, None, None, :]  # padded keys leave every row
         n_blocks = sum(1 for k in self.p if k.endswith("_wq"))
         for i in range(n_blocks):
             h = self._layernorm(x, f"blk{i}_ln1")

@@ -9,27 +9,30 @@
                          clean features (ref pipeline1.py:462-637)
   * run_cv():            engine B -- the 5-fold CV table, the persisted
                          production MLP and its permutation importance
-                         (ref main.py:872-1006); the feature MLP only, the
-                         sequence heads' training is not ported yet
+                         (ref main.py:872-1006); with include_seq, the
+                         sequence heads' CV grids, their nested weighted
+                         vote and the servable quint (refit heads and
+                         ensemble.json)
 
 Each runs on an explicit device: the gate and spectromel kernels and the
-MLP grid on `cuda`, their plain versions on `cpu`.  They write what the
-JAX package writes -- the same clear_audio/ files, the same cache_features/
-names (`cache.FeatureCache`, with the `_d286` namespace of the 286-dim
-variant), and the same CSV, HTML, .npz and .json artifacts under the same
-names, headers and row names ("MLP-TPU" for the seed-ensembled MLP) -- so
-either package reads the other's workspace.  sklearn's model zoo and the
+MLP and sequence-head grids on `cuda`, their plain versions on `cpu`.
+They write what the JAX package writes -- the same clear_audio/ files, the
+same cache_features/ names (`cache.FeatureCache`, with the `_d286`
+namespace of the 286-dim variant), and the same CSV, HTML, .npz and .json
+artifacts under the same names, headers and row names ("MLP-TPU" for the
+seed-ensembled MLP) -- so either package reads the other's workspace.  sklearn's model zoo and the
 reference's pickles are written where sklearn and joblib are installed.
 
 Unlike the JAX package, a device or kernel error is never caught: an
 undecodable file degrades its own row, a malformed clip is left raw by the
 denoiser, and a host (sklearn) model that fails is logged and left out of
-the tables, but a kernel or the MLP grid failing raises through every entry
-point.
+the tables, but a kernel or a training grid failing raises through every
+entry point.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 from pathlib import Path
@@ -422,12 +425,172 @@ def run_before_after(
             "stage_s": dict(timer.totals)}
 
 
-_SEQ_KNOBS = {  # run_cv's sequence-head arguments and their defaults
-    "include_seq": False, "seq_seeds": 1, "seq_epochs": 80, "ensemble_mlp": "none",
-    "seq_archs": ("cnn", "cnn_bilstm", "transformer", "transformer_lr1e3",
-                  "transformer_mix4_lr1e3"),
-    "seq_tta_crops": (), "seq_raw_archs": (), "seq_class_balanced": False,
-}
+def _cv_row(name: str, y_true: np.ndarray, y_pred: np.ndarray, folds, n_classes: int) -> dict:
+    """Per-fold macro metrics averaged across folds -- the reference's
+    protocol exactly (ref: main.py:918-944), not pooled out-of-fold."""
+    accs, ps, rs, fs = [], [], [], []
+    for _, te in folds:
+        accs.append(evals.accuracy(y_true[te], y_pred[te]))
+        p, r, f, _ = evals.precision_recall_fscore(y_true[te], y_pred[te], n_classes, "macro")
+        ps.append(p), rs.append(r), fs.append(f)
+    return {
+        "Model": name,
+        "Accuracy (%)": float(np.mean(accs)) * 100,
+        "Precision (%)": float(np.mean(ps)) * 100,
+        "Recall (%)": float(np.mean(rs)) * 100,
+        "F1-Score (%)": float(np.mean(fs)) * 100,
+    }
+
+
+def _run_seq_members(root, cfg: PipelineConfig, le: LabelEncoder, labels_taxonomy: str,
+                     out_dir: str, timer: StageTimer, dev: torch.device, *, seq_seeds: int,
+                     seq_epochs: int, ensemble_mlp: str, seq_archs: tuple, seq_tta_crops: tuple,
+                     seq_raw_archs: tuple, seq_class_balanced: bool) -> list[dict]:
+    """run_cv's sequence heads (the JAX package's pipeline.py:571-774) ->
+    their table rows; writes oof_probas.npz, ensemble_weights.json, the
+    refit members' artifacts, ensemble.json and, with raw probe members,
+    ensemble_probe.json."""
+    import dataclasses
+
+    from stutter_tpu_torch.data import map_labels_to_5class
+    from stutter_tpu_torch.ops.frontend import extract_features_numpy
+    from stutter_tpu_torch.train.ensemble import nested_weighted_vote
+    from stutter_tpu_torch.train.seq_pipeline import (
+        cross_validate_seq, default_train_cfg, fit_seq_head, load_corpus_clips,
+        persist_seq_head)
+
+    class_names = le.classes_
+    n_classes = len(class_names)
+    with timer.stage("seq_clips"):
+        clips, seq_labels, seq_stems, seq_files = load_corpus_clips(root, cfg, with_files=True,
+                                                                     device=dev)
+    if labels_taxonomy == "5class":
+        seq_labels = map_labels_to_5class(seq_labels)
+    y_seq = le.transform(seq_labels)
+    seq_folds = stratified_kfold(y_seq, cfg.train.n_folds, cfg.train.seed)
+    rows: list[dict] = []
+    seq_probas: dict[str, np.ndarray] = {}
+    seq_probas_tta: dict[str, np.ndarray] = {}
+
+    def row(name, y_pred):
+        rows.append(_cv_row(name, y_seq, y_pred, seq_folds, n_classes))
+        return rows[-1]["Accuracy (%)"]
+
+    def arch_cfg(arch):
+        tc = default_train_cfg(arch, seq_epochs)
+        return dataclasses.replace(tc, class_balanced=True) if seq_class_balanced else tc
+
+    for arch in seq_archs:
+        vp: list | None = [] if seq_tta_crops else None
+        with timer.stage(f"seq_cv_{arch}"):
+            pred_s, proba_s = cross_validate_seq(
+                arch, clips, y_seq, seq_folds, n_classes, arch_cfg(arch), n_seeds=seq_seeds,
+                tta_crops=seq_tta_crops, view_probas=vp, device=dev)
+        if seq_tta_crops:
+            # the identity view stays the production protocol; the
+            # TTA-averaged probabilities get their own comparison row
+            seq_probas[arch], seq_probas_tta[arch] = vp[0], proba_s
+            pred_s = vp[0].argmax(-1)
+            row(f"{arch.upper()}-TPU+TTA", proba_s.argmax(-1))
+        else:
+            seq_probas[arch] = proba_s
+        log.info("%s CV done in %.1fs: acc=%.1f%%", arch, timer.totals[f"seq_cv_{arch}"],
+                 row(f"{arch.upper()}-TPU", pred_s))
+
+    if seq_raw_archs:
+        # raw-view diversity members: the SAME rows and folds, decoded
+        # before the gate (every default member sees gated audio); a file
+        # no decoder reads keeps its denoised clip, so the rows stay aligned
+        raw_clips = []
+        for f, c in zip(seq_files, clips):
+            y = _load_clip(f, cfg.features.frontend.sample_rate, device=dev)
+            if y is None:
+                log.warning("raw decode failed for %s; using the denoised clip", f)
+            raw_clips.append(c if y is None else y)
+        for arch in seq_raw_archs:
+            with timer.stage(f"seq_cv_{arch}_raw"):
+                _, proba_r = cross_validate_seq(arch, raw_clips, y_seq, seq_folds, n_classes,
+                                                arch_cfg(arch), n_seeds=seq_seeds, device=dev)
+            seq_probas[f"{arch}_raw"] = proba_r
+            log.info("%s(raw) CV done in %.1fs: acc=%.1f%%", arch,
+                     timer.totals[f"seq_cv_{arch}_raw"],
+                     row(f"{arch.upper()}-RAW-TPU", proba_r.argmax(-1)))
+
+    # The optional MLP member gets its own name, scaler and refit ("mlp_clean"
+    # on the seq clips' features, or "mlp_both"): serving must load the
+    # member the vote's weights were searched on, not engine B's MLP.
+    mlp_name, X_seq, scaler_seq, Xs_seq = "mlp_clean", None, None, None
+    mlp_cfg = MLPTrainConfig(n_classes=n_classes)
+    with timer.stage("seq_vote"):
+        if ensemble_mlp == "both":
+            # cached per-file features (raw + clean) joined by stem
+            X_raw_all, _, files_all, okr_all = extract_corpus(root, cfg, "raw", device=dev)
+            X_clean_all, _, _, okc_all = extract_corpus(root, cfg, "clean", device=dev)
+            stem_row = {Path(f).stem: i for i, f in enumerate(files_all)}
+            at = [stem_row.get(s, -1) for s in seq_stems]
+            bad = sum(1 for r in at if r < 0 or not (okr_all[r] and okc_all[r]))
+            if not bad:
+                X_seq = np.concatenate([X_raw_all[at], X_clean_all[at]], axis=1)
+                mlp_name = "mlp_both"
+            else:
+                log.warning("raw+clean features unavailable for %d seq rows; ensemble "
+                            "MLP member falls back to clean-only", bad)
+        if ensemble_mlp != "none":
+            if X_seq is None:
+                X_seq = extract_features_numpy(clips, cfg.features, device=dev)
+            scaler_seq = StandardScaler.fit(X_seq)
+            Xs_seq = scaler_seq.transform(X_seq).astype(np.float32)
+            _, seq_probas[mlp_name] = cross_validate_mlp(Xs_seq, y_seq, seq_folds, mlp_cfg,
+                                                         device=dev)
+        # the members' out-of-fold probabilities: vote experiments (weight
+        # grids, stackers) then run offline without retraining any grid
+        np.savez(
+            os.path.join(out_dir, "oof_probas.npz"),
+            y=y_seq,
+            fold_of=np.concatenate([np.full(len(te), k, np.int32)
+                                    for k, (_, te) in enumerate(seq_folds)])[
+                np.argsort(np.concatenate([te for _, te in seq_folds]))],
+            **{f"proba_{n}": p for n, p in seq_probas.items()},
+        )
+        pred_v, _, vote_weights = nested_weighted_vote(seq_probas, y_seq, seq_folds)
+        acc_v = row("Weighted-Vote-TPU", pred_v)
+        if seq_tta_crops:
+            if ensemble_mlp != "none":
+                seq_probas_tta[mlp_name] = seq_probas[mlp_name]
+            pred_vt, _, _ = nested_weighted_vote(seq_probas_tta, y_seq, seq_folds)
+            row("Weighted-Vote-TPU+TTA", pred_vt)
+        with open(os.path.join(out_dir, "ensemble_weights.json"), "w") as f:
+            json.dump(vote_weights, f, indent=1)
+    log.info("weighted vote done in %.1fs: acc=%.1f%%", timer.totals["seq_vote"], acc_v)
+
+    # the headline model made servable: each member refit on ALL rows and
+    # persisted, and the fold-averaged vote weights for EnsemblePredictor
+    for arch in seq_archs:
+        with timer.stage(f"seq_fit_{arch}"):
+            params_a, mean_a, std_a = fit_seq_head(arch, clips, y_seq, n_classes, arch_cfg(arch),
+                                                   device=dev)
+            persist_seq_head(out_dir, arch, params_a, mean_a, std_a, class_names)
+    if ensemble_mlp != "none":
+        with timer.stage("seq_fit_mlp"):
+            suffix = mlp_name.removeprefix("mlp_")
+            persist.save_mlp(os.path.join(out_dir, f"model_mlp_{suffix}_tpu"),
+                             fit_mlp(Xs_seq, y_seq, mlp_cfg, device=dev))
+            persist.save_scaler(os.path.join(out_dir, f"scaler_{suffix}.npz"), scaler_seq)
+    avg_w = {name: float(np.mean([w[name] for w in vote_weights])) for name in vote_weights[0]}
+    total_w = sum(avg_w.values()) or 1.0
+    avg_w = {k: v / total_w for k, v in avg_w.items()}
+    if seq_raw_archs:
+        # raw probe members have no persisted refit, so a vote naming them
+        # is not servable: the searched weights go to ensemble_probe.json,
+        # and ensemble.json zeroes them and renormalizes
+        with open(os.path.join(out_dir, "ensemble_probe.json"), "w") as f:
+            json.dump({"weights": avg_w, "classes": class_names}, f, indent=1)
+        servable = {k: (0.0 if k.endswith("_raw") else v) for k, v in avg_w.items()}
+        total_s = sum(servable.values()) or 1.0
+        avg_w = {k: v / total_s for k, v in servable.items()}
+    with open(os.path.join(out_dir, "ensemble.json"), "w") as f:
+        json.dump({"weights": avg_w, "classes": class_names}, f, indent=1)
+    return rows
 
 
 def run_cv(
@@ -440,7 +603,8 @@ def run_cv(
     seq_seeds: int = 1,
     seq_epochs: int = 80,
     ensemble_mlp: str = "none",
-    seq_archs: tuple = _SEQ_KNOBS["seq_archs"],
+    seq_archs: tuple = ("cnn", "cnn_bilstm", "transformer", "transformer_lr1e3",
+                        "transformer_mix4_lr1e3"),
     seq_tta_crops: tuple = (),
     seq_raw_archs: tuple = (),
     seq_class_balanced: bool = False,
@@ -457,21 +621,33 @@ def run_cv(
     model_mlp_tpu.{npz,json}, permutation_importance_mlp_tpu.{csv,html}, the
     single-split confusion_<model>.csv and confusion_matrices.html, and with
     sklearn the zoo's rows, permutation_importance_rf.{csv,html} and the
-    reference's pickles.  `stage_s`: wall seconds of the features, the CV
-    grid (mlp_cv), the production fit and its save (mlp_fit), the MLP's
-    permutation importance and each single_split_<model>.
+    reference's pickles.
 
-    The sequence heads' training is not ported: include_seq=True, or any
-    sequence knob off its default, raises NotImplementedError."""
-    asked = sorted(k for k, v in dict(
-        include_seq=include_seq, seq_seeds=seq_seeds, seq_epochs=seq_epochs,
-        ensemble_mlp=ensemble_mlp, seq_archs=tuple(seq_archs),
-        seq_tta_crops=tuple(seq_tta_crops), seq_raw_archs=tuple(seq_raw_archs),
-        seq_class_balanced=seq_class_balanced).items() if v != _SEQ_KNOBS[k])
-    if asked:
-        raise NotImplementedError(
-            f"run_cv({', '.join(asked)}): the sequence heads' training is not ported to "
-            f"stutter_tpu_torch yet (ROADMAP Queue 1, sequence training); use stutter_tpu")
+    include_seq: also the sequence heads (`_run_seq_members`), on the clips
+    with clear_audio WAVs and folds of their own: a '<ARCH>-TPU' row per
+    member of seq_archs (the default quint: cnn, cnn_bilstm and the three
+    transformer recipes), each trained as folds x seq_seeds grids for
+    seq_epochs epochs; their out-of-fold probabilities (oof_probas.npz);
+    the nested weighted vote ('Weighted-Vote-TPU', ensemble_weights.json);
+    and the servable quint: each member refit on all rows
+    (model_<arch>.{npz,json}, model_<arch>_norm.npz) and ensemble.json.
+    ensemble_mlp: an MLP member of the vote, 'none', 'clean' or 'both'
+    (raw+clean features; clean-only when raw ones are undecodable), refit
+    and persisted as model_mlp_<name>_tpu + scaler_<name>.npz.
+    seq_tta_crops: also '<ARCH>-TPU+TTA' and 'Weighted-Vote-TPU+TTA' rows
+    from start/end-cropped views of the same grids.  seq_raw_archs: probe
+    members trained on the raw (pre-denoise) decode of the same rows
+    ('<ARCH>-RAW-TPU' rows, '<arch>_raw' in the vote); their weights go to
+    ensemble_probe.json and are zeroed in ensemble.json, since no refit of
+    them is persisted.  seq_class_balanced: inverse-class-frequency
+    sampling for every member and refit.
+
+    `stage_s`: wall seconds of the features, the CV grid (mlp_cv), the
+    production fit and its save (mlp_fit), the MLP's permutation importance
+    and each single_split_<model>; with include_seq also seq_clips,
+    seq_cv_<arch> (each architecture's CV grids, their featurization and
+    predictions), seq_vote (the MLP member's CV and the vote) and
+    seq_fit_<arch> (each refit and its save)."""
     dev = resolve_device(device)
     out_dir = os.path.join(root, cfg.data.output_dir)
     os.makedirs(out_dir, exist_ok=True)
@@ -506,21 +682,7 @@ def run_cv(
     final_rows = []
 
     def add_row(name, y_pred):
-        """Per-fold macro metrics averaged across folds -- the reference's
-        protocol exactly (ref: main.py:918-944), not pooled out-of-fold."""
-        accs, ps, rs, fs = [], [], [], []
-        for _, te in folds:
-            accs.append(evals.accuracy(y[te], y_pred[te]))
-            p, r, f, _ = evals.precision_recall_fscore(y[te], y_pred[te], len(class_names),
-                                                       "macro")
-            ps.append(p), rs.append(r), fs.append(f)
-        final_rows.append({
-            "Model": name,
-            "Accuracy (%)": float(np.mean(accs)) * 100,
-            "Precision (%)": float(np.mean(ps)) * 100,
-            "Recall (%)": float(np.mean(rs)) * 100,
-            "F1-Score (%)": float(np.mean(fs)) * 100,
-        })
+        final_rows.append(_cv_row(name, y, y_pred, folds, len(class_names)))
 
     # the seed-ensembled MLP: the whole folds x seeds grid at once
     mlp_cfg = MLPTrainConfig(n_classes=len(class_names))
@@ -540,6 +702,13 @@ def run_cv(
         if name == "RandomForest":
             model.fit(Xs, y)  # refit on all data (ref main.py:946-948)
             rf_full = model
+
+    if include_seq:
+        final_rows += _run_seq_members(
+            root, cfg, le, labels_taxonomy, out_dir, timer, dev, seq_seeds=seq_seeds,
+            seq_epochs=seq_epochs, ensemble_mlp=ensemble_mlp, seq_archs=seq_archs,
+            seq_tta_crops=seq_tta_crops, seq_raw_archs=seq_raw_archs,
+            seq_class_balanced=seq_class_balanced)
 
     evals.write_final_performance_csv(os.path.join(out_dir, "FINAL_PERFORMANCE_TABLE.csv"),
                                       final_rows)

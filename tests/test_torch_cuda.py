@@ -411,3 +411,37 @@ def test_fed_training_steps_on_the_card_equal_the_cpu(cuda):
     for _ in range(20):
         _, _, wb, kept = draw_batch(Xd, torch.from_numpy(y).to(cuda), w, cfg, gen)
         assert bool((wb == 1).all()) and kept[0].device.type == "cuda"
+
+
+@pytest.mark.parametrize("arch", ["cnn", "cnn_bilstm", "transformer"])
+def test_fed_seq_grid_steps_on_the_card_equal_the_cpu(cuda, arch):
+    """Three steps of a sequence-head grid at the published widths (G = 2,
+    batch 16, t_max 316, mixup and SpecAugment on), the same initial
+    weights and draws fed to both: the card's weights equal the CPU's
+    within 1e-4 relative, normwise per tensor."""
+    from stutter_tpu_torch.train.seq_pipeline import ARCHS
+    from stutter_tpu_torch.train.seq_trainer import (
+        GridSteps, SeqGrid, SeqGridTrainer, SeqTrainConfig, draw_steps, row_targets)
+
+    spec = ARCHS[arch]
+    D = 60 if spec["kind"] == "mfcc_deltas" else 128
+    rng = np.random.RandomState(18)
+    N, G, steps = 40, 2, 3
+    nv = rng.randint(20, 317, N)
+    X = rng.randn(N, 316, D).astype(np.float32) * (np.arange(316)[None] < nv[:, None])[..., None]
+    y = rng.randint(0, 3, N)
+    cfg = SeqTrainConfig(batch_size=16, mixup_alpha=0.2, time_masks=1, freq_masks=1)
+    inits = [spec["init_fn"](np.random.RandomState(s), **spec["init_kwargs"](3)) for s in (1, 2)]
+    draws = [draw_steps(s, np.ones(N), nv, steps, cfg, D) for s in (1, 2)]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        grid = SeqGrid(spec["module"], inits, dev)
+        trainer = SeqGridTrainer(grid, cfg, 100)
+        feed = GridSteps(X, nv, row_targets(y, 3, cfg), np.zeros((G, D)), np.ones((G, D)), draws,
+                         (1, 2), cfg, dev)
+        for t in range(steps):
+            trainer.step(*feed.batch(t))
+        out[dev.type] = grid.params()
+    for g in range(G):
+        for k, ref in out["cpu"][g].items():  # normwise: see chip_smoke.step_errors
+            assert np.linalg.norm(out["cuda"][g][k] - ref) / np.linalg.norm(ref) < 1e-4, (g, k)

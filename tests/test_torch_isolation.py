@@ -426,3 +426,79 @@ def test_persist_sklearn_helpers_equal_the_jax_package(tmp_path):
         mod.clear_stale_artifacts(str(d))
     assert sorted(os.listdir(tmp_path / "ours")) == sorted(os.listdir(tmp_path / "theirs")) == [
         "model_mlp_tpu.npz"]
+
+
+def _vote_inputs(seed, n_members):
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, 3, 60)
+    probas = {f"m{i}": rng.dirichlet(np.ones(3), 60).astype(np.float32) for i in range(n_members)}
+    probas["m0"][np.arange(60), y] += 0.3  # one member that knows something
+    folds = [(np.setdiff1d(np.arange(60), np.arange(k, 60, 4)), np.arange(k, 60, 4))
+             for k in range(4)]
+    return probas, y, folds
+
+
+@pytest.mark.parametrize("n_members", [2, 3])
+def test_nested_weighted_vote_and_its_band_equal_the_jax_package(n_members):
+    from stutter_tpu.train import ensemble as J
+    from stutter_tpu_torch.train import ensemble as P
+
+    probas, y, folds = _vote_inputs(5, n_members)
+    for step in (0.05, 0.25):
+        ours, theirs = P.nested_weighted_vote(probas, y, folds, step), J.nested_weighted_vote(
+            probas, y, folds, step)
+        np.testing.assert_array_equal(ours[0], theirs[0])
+        np.testing.assert_array_equal(ours[1], theirs[1])
+        assert ours[2] == theirs[2] and len(ours[2]) == 4
+    assert P.bootstrap_vote_band(probas, y, folds, 0.25, n_boot=20, seed=3) == \
+        J.bootstrap_vote_band(probas, y, folds, 0.25, n_boot=20, seed=3)
+    with pytest.raises(ValueError, match="cover"):
+        P.nested_weighted_vote(probas, y, folds[:3])
+
+
+def test_stem_collisions_and_cached_corpus_equal_the_jax_package(tmp_path):
+    """find_stem_collisions and load_cached_corpus over one synthetic tree
+    whose cache misses an entry: the same dict in both packages."""
+    from stutter_tpu import data as J
+    from stutter_tpu_torch import data as P
+
+    audio = tmp_path / "segrigated_samples"
+    for rel in ("block/a.wav", "fluent/a.wav", "block/b.wav", "fluent/c.mp3"):
+        (audio / rel).parent.mkdir(parents=True, exist_ok=True)
+        (audio / rel).write_bytes(b"")
+    assert P.find_stem_collisions(str(audio)) == J.find_stem_collisions(str(audio)) == {
+        "a": ["block", "fluent"]}
+    (tmp_path / "cache_features").mkdir()
+    rng = np.random.RandomState(6)
+    for stem in ("a", "b"):
+        np.save(tmp_path / "cache_features" / f"{stem}_clean_feats.npy",
+                rng.randn(149).astype(np.float32))
+    np.save(tmp_path / "cache_features" / "c_raw_feats.npy", rng.randn(160).astype(np.float32))
+    ours = P.load_cached_corpus(P.DataConfig(), str(tmp_path))
+    theirs = J.load_cached_corpus(jconfig.DataConfig(), str(tmp_path))
+    assert sorted(ours) == sorted(theirs)
+    assert ours["missing_raw"] == theirs["missing_raw"] == 3 and ours["missing_clean"] == 1
+    for k, v in theirs.items():
+        if isinstance(v, np.ndarray):
+            np.testing.assert_array_equal(ours[k], v)
+        else:
+            assert ours[k] == v, k
+
+
+def test_seq_training_config_and_recipes_equal_the_jax_package():
+    """SeqTrainConfig's fields and defaults, balanced_row_weights, and each
+    architecture's recipe and init widths."""
+    from stutter_tpu.train import seq_pipeline as JP
+    from stutter_tpu.train import seq_trainer as JT
+    from stutter_tpu_torch.train import seq_pipeline as P
+    from stutter_tpu_torch.train import seq_trainer as T
+
+    assert dataclasses.asdict(T.SeqTrainConfig()) == dataclasses.asdict(JT.SeqTrainConfig())
+    y = np.array([0] * 9 + [1] * 3 + [2])
+    np.testing.assert_array_equal(T.balanced_row_weights(y, 4), JT.balanced_row_weights(y, 4))
+    assert list(P.ARCHS) == list(JP.ARCHS)
+    for arch in P.ARCHS:
+        assert P.default_train_cfg(arch, 7) == T.SeqTrainConfig(
+            **dataclasses.asdict(JP.default_train_cfg(arch, 7)))
+        assert P.ARCHS[arch]["kind"] == JP.ARCHS[arch]["kind"]
+        assert P.ARCHS[arch]["init_kwargs"](5) == JP.ARCHS[arch]["init_kwargs"](5)

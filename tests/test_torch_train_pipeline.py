@@ -226,22 +226,11 @@ def test_predictor_serves_the_trained_model(runs):
             assert r["label"] == cls and abs(sum(r["proba"].values()) - 1) < 1e-5
 
 
-@pytest.mark.parametrize("kw", [{"include_seq": True}, {"seq_seeds": 5},
-                                {"ensemble_mlp": "both"}, {"seq_tta_crops": (40,)},
-                                {"seq_raw_archs": ("cnn",)}, {"seq_class_balanced": True}])
-def test_run_cv_refuses_the_sequence_knobs(tmp_path, kw):
-    from stutter_tpu_torch.pipeline import run_cv
-
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        run_cv(str(tmp_path), CFG, device="cpu", **kw)
-    assert not (tmp_path / "output_results").exists()
-
-
 def test_cli_train_and_train_ab(runs, tmp_path, capsys):
     """`train --no-host` and `train-ab` on the CPU (the MLP and the zoo
     shrunk as above) print the JAX CLI's lines; without --device cpu and
-    without a GPU they raise before writing anything; --seq is not
-    offered."""
+    without a GPU they raise before writing anything; `train` offers the
+    sequence heads' flags (tests/test_torch_seq_pipeline.py runs them)."""
     from stutter_tpu_torch import cli, pipeline
     from stutter_tpu_torch.models import host_baselines as tzoo
 
@@ -266,4 +255,8 @@ def test_cli_train_and_train_ab(runs, tmp_path, capsys):
                 cli.main([cmd, "--root", str(empty)])
         assert not empty.exists()
     with pytest.raises(SystemExit):
-        cli.main(["train", "--root", str(root), "--seq", "--device", "cpu"])
+        cli.main(["train", "--help"])
+    usage = capsys.readouterr().out
+    for flag in ("--seq", "--seq-seeds", "--ensemble-mlp", "--seq-tta-crop", "--seq-balanced",
+                 "--seq-raw-arch"):
+        assert f"{flag} " in usage, flag
