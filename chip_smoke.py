@@ -91,14 +91,29 @@
    (launches and device ms a step, idle share), the peak device memory of
    a chunk of G = 5 and of G = 25 (--seq-seeds 5), and run_cv's wall
    seconds and stages.
-10. Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
+10. Data parallelism over a mesh of every visible GPU and, with one GPU,
+   over make_mesh(devices=["cuda:0"] * 2), a split of the card into two
+   shards (which checks the split and the gather, not two devices), each
+   path against the same work unsharded: extract_features_sharded at
+   B=256 x 3 s and denoise_sharded at B=64 x 3 s against the wrappers on
+   one device, run_bucketed over the request mix, ensemble_sharded with
+   the quint at its published widths (write_quint) on the request mix
+   (B=8) against infer._ensemble_fused, cross_validate_mlp at G=40 (5
+   folds x 8 seeds, published widths, 20 epochs), cross_validate_seq for
+   the cnn (2 epochs, G = 5 x the mesh's size, 300 clips of 3 s), one
+   data-parallel Adam step and train_mlp_dp for 3 epochs at 149-256-128-64-3,
+   and dp_eval_accuracy, each against a mesh of one.  Every pair within
+   PAR_TOL (max abs diff printed), labels and predictions equal, a mesh of
+   one bitwise equal to the unsharded wrappers; each path's wall, sharded
+   and unsharded, the median of PAR_REPS runs; one `parallel` JSON line.
+11. Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
 
 Phase 2 also holds the kernels at the stream paths' shapes: the vote's
 segment, one [1, 2**20] buffer, through the gate and the mel mode without
 the tuning tail (as the sequence featurizer runs it), and the MLP stream's
 windows, [64, 48128], through the stats mode and chroma_stats.
 
-Each of the paths 3-5 and 7-9 runs with every launch count set to 0 just
+Each of the paths 3-5 and 7-10 runs with every launch count set to 0 just
 before it and read just after, and fails if a kernel it uses never
 launched.
 
@@ -139,6 +154,7 @@ N_TRAIN = 905  # the training phase's corpus
 # so the phase runs 30 and prints run_cv's wall projected to 80
 SEQ_EPOCHS = 30
 SEQ_WINDOW = 20  # phase 9's profiled grid steps
+PAR_REPS, PAR_TOL = 5, 1e-5  # phase 10: timed runs of each path; sharded vs unsharded bound
 QUINT = {"cnn": 0.2, "cnn_bilstm": 0.15, "transformer": 0.2, "transformer_lr1e3": 0.2,
          "transformer_mix4_lr1e3": 0.25}  # member -> vote weight
 REQUEST_S = (1.5, 3, 3, 3, 3, 5, 6, 10)  # the request mix (s)
@@ -1383,6 +1399,173 @@ def seq_training_phase(rng, dev, root: str) -> dict:
     return res
 
 
+def mesh_wall_s(mesh, fn, reps: int = PAR_REPS) -> float:
+    """The median wall seconds of `reps` runs of fn(), each synchronised on
+    every device of the mesh."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        for d in set(mesh):
+            torch.cuda.synchronize(d)
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def parallel_phase(rng, dev, out_dir: str) -> dict:
+    """Phase 10: every sharded path over every visible GPU and, on one GPU,
+    over a split of the card into two shards, each against the same work
+    unsharded (a mesh of one, or the plain entry point on one device):
+    within PAR_TOL with the largest difference reported, labels and
+    predictions equal, a mesh of one bitwise equal to the unsharded entry
+    point.  Each sharded path's kernels are counted on its first run; its
+    wall and the unsharded one's are medians of PAR_REPS runs."""
+    import torch
+
+    from stutter_tpu_torch.config import FEATURES_149, DenoiseConfig
+    from stutter_tpu_torch.denoise import denoise_batch
+    from stutter_tpu_torch.infer import SeqPredictor, _ensemble_fused, _member_groups
+    from stutter_tpu_torch.models.mlp import init_mlp
+    from stutter_tpu_torch.ops.frontend import extract_features_149_batch, extract_features_numpy
+    from stutter_tpu_torch.parallel import mesh as M
+    from stutter_tpu_torch.train.seq_pipeline import cross_validate_seq, default_train_cfg
+    from stutter_tpu_torch.train.splits import stratified_kfold
+    from stutter_tpu_torch.train.trainer import MLPTrainConfig, cross_validate_mlp
+
+    gpus = M.make_mesh()
+    one = M.make_mesh(devices=gpus[:1])
+    meshes = {"gpus": gpus}
+    if len(gpus) == 1:  # the split and the gather on one card, not two devices
+        meshes["split_of_one_card"] = M.make_mesh(devices=gpus * 2)
+    res = {"gpus": len(gpus), "meshes": {k: [str(d) for d in m] for k, m in meshes.items()},
+           "tolerance": PAR_TOL, "paths": {}, "launches_by_path": {}}
+
+    def path(name: str, kernels, sharded, unsharded, diff, direct=None, over=meshes) -> None:
+        """sharded(mesh) for each mesh `over` against unsharded(); direct(),
+        where given, is the unsharded entry point a mesh of one must equal
+        bitwise."""
+        ref = unsharded()
+        out = res["paths"][name] = {"unsharded_s": mesh_wall_s(one, unsharded)}
+        if direct is not None:
+            out["mesh_of_one_bitwise"] = bool(np.array_equal(sharded(one), direct()))
+            check(out["mesh_of_one_bitwise"], f"{name}: a mesh of one differs from unsharded")
+        for key, mesh in over.items():
+            if kernels:
+                got, _ = counted_entry(res["launches_by_path"], f"{name} {key}", kernels,
+                                       lambda: sharded(mesh))
+            else:
+                got = sharded(mesh)
+            err = diff(got, ref)
+            check(err <= PAR_TOL, f"{name} over {key}: differs by {err} from unsharded")
+            out[key] = {"max_abs_diff": err, "sharded_s": mesh_wall_s(mesh, lambda: sharded(mesh))}
+
+    def abs_diff(a, b) -> float:
+        return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+    def same_argmax(a, b) -> float:
+        check(np.array_equal(np.asarray(a).argmax(-1), np.asarray(b).argmax(-1)),
+              "sharded predictions differ from unsharded")
+        return abs_diff(a, b)
+
+    # the batch front end and the gate at the corpus path's batch shapes
+    audio = structured_clips(rng, 256, 49152)
+    audio[:, 48000:] = 0
+    lengths = np.full(256, 48000, np.int32)
+    on_dev = (torch.from_numpy(audio).to(dev), torch.from_numpy(lengths).to(dev))
+    path("extract_features_sharded B=256 3s", ["spectromel", "chroma_stats"],
+         lambda m: M.extract_features_sharded(m, audio, lengths),
+         lambda: extract_features_149_batch(*on_dev).cpu().numpy(), abs_diff,
+         direct=lambda: extract_features_149_batch(*on_dev).cpu().numpy())
+    gate = (audio[:64], lengths[:64])
+    gate_dev = (on_dev[0][:64].contiguous(), on_dev[1][:64])
+    path("denoise_sharded B=64 3s", ["spectral_gate"], lambda m: M.denoise_sharded(m, *gate),
+         lambda: denoise_batch(*gate_dev).cpu().numpy(), abs_diff,
+         direct=lambda: denoise_batch(*gate_dev).cpu().numpy())
+    del on_dev, gate_dev
+
+    # run_bucketed over the request mix, under extract_features_numpy
+    clips = [structured_clips(rng, 1, int(d * SR))[0] for d in REQUEST_S]
+    path("run_bucketed request mix", ["spectromel", "chroma_stats"],
+         lambda m: extract_features_numpy(clips, FEATURES_149, device=dev, mesh=m),
+         lambda: extract_features_numpy(clips, FEATURES_149, device=dev, mesh=one), abs_diff)
+
+    # the quint's vote at its published widths, B = 8 of the request mix
+    write_quint(rng, out_dir, dev)
+    members = [SeqPredictor.load(out_dir, a, device=dev) for a in QUINT]
+    n = max(len(c) for c in clips)
+    batch = np.zeros((len(clips), -(-n // 512) * 512), np.float32)
+    lens = np.asarray([len(c) for c in clips], np.int32)
+    for i, c in enumerate(clips):
+        batch[i, : len(c)] = c
+    groups = _member_groups(members)
+    b_dev, l_dev = torch.from_numpy(batch).to(dev), torch.from_numpy(lens).to(dev)
+
+    def fused():
+        return _ensemble_fused(b_dev, l_dev, lens, groups, len(members), DenoiseConfig(), True,
+                               SR).cpu().numpy()
+
+    path("ensemble_sharded quint B=8", ["spectral_gate", "spectromel_mel"],
+         lambda m: M.ensemble_sharded(m, batch, lens, members), fused, same_argmax,
+         direct=fused)
+    del b_dev, l_dev, groups, members
+
+    # cross_validate_mlp: 5 folds x 8 seeds (G = 40) at the published widths
+    N, cfg = 600, MLPTrainConfig(epochs=20)
+    y = np.arange(N) % 3
+    X = (rng.randn(N, 149) + 0.5 * np.eye(3)[y] @ rng.randn(3, 149)).astype(np.float32)
+    folds = stratified_kfold(y, 5, seed=42)
+    path("cross_validate_mlp G=40 20 epochs", (),
+         lambda m: cross_validate_mlp(X, y, folds, cfg, device=dev, mesh=m)[1],
+         lambda: cross_validate_mlp(X, y, folds, cfg, device=dev, mesh=one)[1], same_argmax)
+
+    # cross_validate_seq: the cnn at its published widths, 2 epochs, 5 folds
+    # x (mesh size) seeds, a chunk of 5 entries a device
+    seq_clips = [train_clip(rng, i, 3 * SR, SR) for i in range(300)]
+    y_seq = np.arange(300) % 3
+    seq_folds = stratified_kfold(y_seq, 5, seed=42)
+    for key, mesh in meshes.items():
+        def cv(m, n_seeds=len(mesh)):
+            return cross_validate_seq("cnn", seq_clips, y_seq, seq_folds, 3,
+                                      default_train_cfg("cnn", 2), n_seeds=n_seeds, grid_chunk=5,
+                                      device=dev, mesh=m)[1]
+
+        path(f"cross_validate_seq cnn G={5 * len(mesh)} 2 epochs ({key})", ["spectromel_mel"],
+             cv, lambda: cv(one), same_argmax, over={key: mesh})
+
+    # one data-parallel step (Adam, a 256-row batch), train_mlp_dp for 3
+    # epochs, dp_eval_accuracy: the 149-256-128-64-3 MLP
+    init = init_mlp(0, 149, (256, 128, 64), 3)
+    rows = rng.randint(0, N, 256)
+
+    def dp_step(m):
+        step = M.make_dp_train_step(m, lambda ps: torch.optim.Adam(ps, lr=1e-3))
+        params, loss = step(M.replicate(m, init), *M.shard_batch(m, X[rows], y[rows]))
+        return np.concatenate([params[0][k].detach().cpu().numpy().ravel() for k in init]
+                              + [[float(loss)]])
+
+    path("make_dp_train_step Adam B=256", (), dp_step, lambda: dp_step(one), abs_diff)
+
+    def dp_train(m):
+        return M.train_mlp_dp(m, X, y, epochs=3, init=init)
+
+    def flat(p):
+        return np.concatenate([p[k].cpu().numpy().ravel() for k in init])
+
+    path("train_mlp_dp 3 epochs", (), lambda m: flat(dp_train(m)), lambda: flat(dp_train(one)),
+         abs_diff)
+    trained = dp_train(one)
+    path("dp_eval_accuracy", (),
+         lambda m: M.dp_eval_accuracy(m, M.replicate(m, trained), X, y),
+         lambda: M.dp_eval_accuracy(one, M.replicate(one, trained), X, y), abs_diff)
+    for key in meshes:
+        check(res["paths"]["dp_eval_accuracy"][key]["max_abs_diff"] == 0.0,
+              f"dp_eval_accuracy over {key} differs")
+    res["launches"] = {k: sum(c[k] for c in res["launches_by_path"].values()) for k in KERNELS}
+    return res
+
+
 def main() -> int:
     import concurrent.futures
 
@@ -1536,6 +1719,15 @@ def main() -> int:
           + f"; checkpoint resume {seq['resume']['max_rel']:.2e}; trained vote served, "
           f"cuda vs cpu {seq['serve']['cuda_vs_cpu_max_proba_diff']:.2e} ({card})")
 
+    with tempfile.TemporaryDirectory() as out_dir:  # phase 10: data parallelism, own generator
+        par = parallel_phase(np.random.RandomState(8), dev, out_dir)
+    print(f"parallel: {json.dumps(par)}")
+    for name, p in par["paths"].items():
+        print(f"parallel {name}: unsharded {p['unsharded_s']:.4f} s; " + "; ".join(
+            f"{key} ({len(par['meshes'][key])} shards) {p[key]['sharded_s']:.4f} s, max abs diff "
+            f"{p[key]['max_abs_diff']:.2e}" for key in par["meshes"] if key in p)
+            + f" ({par['gpus']} GPU, {card})")
+
     profiles.update(profile_batches(rng, dev))  # phase 6: where the device time goes
     for name, prof in profiles.items():
         print(f"profile {name}: {json.dumps(prof)} ({card})")
@@ -1545,7 +1737,7 @@ def main() -> int:
              head["launches_predict_clip"], head["launches_predict_batch"],
              head["stream_vote"]["launches_one_pass"], head["stream_mlp"]["launches_one_pass"],
              head["launches_http"], train["launches"], train["serve"]["launches"],
-             seq["launches"], seq["serve"]["launches"]]
+             seq["launches"], seq["serve"]["launches"], par["launches"]]
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
     # (name, max abs error, batch-shape result, request-shape result,
     # stream-shape result); no single PyTorch call computes any of these

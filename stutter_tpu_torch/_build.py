@@ -7,6 +7,7 @@ edited source never reuses a stale library.  The sources have a plain C
 interface (no PyTorch headers), which keeps a build to seconds.  Every C
 entry point takes its pointers and the stream as `void*`, launches on that
 stream without synchronising, and returns `cudaGetLastError()`;
+`launch(fn, t, ...)` calls one under its tensor's device and stream, and
 `check(rc, what)` turns a non-zero code into an exception.
 
 No `--use_fast_math`: it swaps `log10f`, `expf`, `sqrtf` and division for
@@ -97,7 +98,15 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc}")
 
 
-def stream_of(t) -> int:
+def launch(fn, t, *args) -> int:
+    """fn(*args, stream) with `t`'s device current, on that device's current
+    stream -> fn's CUDA error code.
+
+    `cudaFuncSetAttribute` and a launch act on the calling thread's current
+    device, whatever stream they are given: a tensor on another device than
+    the current one would get its attributes set on the wrong device and a
+    stream of another device."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    with torch.cuda.device(t.device):
+        return fn(*args, torch.cuda.current_stream(t.device).cuda_stream)

@@ -22,3 +22,12 @@ def resolve_device(device: torch.device | str = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cpu' or 'cuda'")
     return dev
+
+
+def visible_gpus() -> list[torch.device]:
+    """Every visible GPU as an indexed device, cuda:0 .. cuda:n-1; raises
+    without one.  An unindexed `cuda` means the current device, so a
+    generator or a table built from it would not follow a tensor on
+    another card."""
+    resolve_device("cuda")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

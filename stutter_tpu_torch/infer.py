@@ -438,12 +438,33 @@ def _seq_vote_batch(clips, groups, n_members, cfg, denoise: bool, sr: int,
                 r = slice(rows[0], rows[-1] + 1)
                 gated[r, :b] = denoise_batch(audio[r, :b].contiguous(), lengths[r], cfg.denoise)
             audio = gated
-        nv = torch.clamp(1 + torch.div(lengths, 512, rounding_mode="floor"), max=T_MAX)
-        nv_host = np.minimum(1 + lens // 512, T_MAX)
-        frames, _ = seq_frames(audio, lengths, {g.kind for g in groups}, sr)
-        feats = {kind: (fit_frames(f, T_MAX), nv, nv_host) for kind, f in frames.items()}
-        P = _member_forwards(feats, groups, n_members)
+        P = _vote_frames(audio, lengths, lens, groups, n_members, sr)
     return P.cpu().numpy()[:, np.argsort(order)]
+
+
+def _vote_frames(audio, lengths, lens, groups, n_members, sr: int,
+                 t_max: int = T_MAX) -> torch.Tensor:
+    """Audio [B, N] at the front end's rate (gated or not), lengths [B] on
+    the device and the same on the host -> [M, B, C]: one spectrogram, each
+    feature kind's frames from it (shared by the kind's members), every
+    member forward."""
+    nv = torch.clamp(1 + torch.div(lengths, 512, rounding_mode="floor"), max=t_max)
+    nv_host = np.minimum(1 + np.asarray(lens) // 512, t_max)
+    frames, _ = seq_frames(audio, lengths, {g.kind for g in groups}, sr)
+    feats = {kind: (fit_frames(f, t_max), nv, nv_host) for kind, f in frames.items()}
+    return _member_forwards(feats, groups, n_members)
+
+
+def _ensemble_fused(audio, lengths, lens, groups, n_members, dn_cfg, denoise: bool, sr: int,
+                    t_max: int = T_MAX) -> torch.Tensor:
+    """The JAX package's _ensemble_seq_fused_impl (stutter_tpu/infer.py:402):
+    audio [B, N] gated at N as one batch (not per bucket, as _seq_vote_batch
+    gates), then _vote_frames -> [M, B, C] on the device.
+    parallel.mesh.ensemble_sharded runs it per shard."""
+    with torch.no_grad():
+        if denoise:
+            audio = denoise_batch(audio, lengths, dn_cfg)
+        return _vote_frames(audio, lengths, lens, groups, n_members, sr, t_max)
 
 
 def _ensemble_stream(audio, length, starts_f, nv_host, groups, n_members, dn_cfg,

@@ -60,6 +60,14 @@ def apply_mlp_grid(
     return h
 
 
+def apply_mlp(params: dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """One MLP in the JAX package's names ({w0: [d_in, d_out], b0: [d_out],
+    w1, ...}): x [M, d_in] -> logits [M, n_classes], without dropout."""
+    n = len(params) // 2
+    return apply_mlp_grid([params[f"w{i}"][None] for i in range(n)],
+                          [params[f"b{i}"][None] for i in range(n)], x[None])[0]
+
+
 class SeedMLP(nn.Module):
     """ReLU MLP with weights stacked over seeds; forward -> seed-mean softmax."""
 

@@ -71,9 +71,9 @@ def _chroma_stats_cuda(power, tuning_bin, n_valid, sr, n_fft, n_chroma):
     table = _device_table(str(power.device), sr, n_fft, n_chroma)
     out = torch.empty(B, 2 * n_chroma, device=power.device)
     fn = _build.bind("chroma_stats", "chroma_stats_launch", 5, 6)
-    rc = fn(power.data_ptr(), tb.data_ptr(), nv.data_ptr(), table.data_ptr(), out.data_ptr(),
-            B, T, K, table.shape[1], table.shape[0] // n_chroma, cluster_size(B, T),
-            _build.stream_of(power))
+    rc = _build.launch(fn, power, power.data_ptr(), tb.data_ptr(), nv.data_ptr(),
+                       table.data_ptr(), out.data_ptr(), B, T, K, table.shape[1],
+                       table.shape[0] // n_chroma, cluster_size(B, T))
     _build.check(rc, "chroma_stats_launch")
     chroma_stats.launches += 1
     return out

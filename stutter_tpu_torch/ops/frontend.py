@@ -19,11 +19,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from stutter_tpu_torch.device import resolve_device
 from stutter_tpu_torch.ops.chroma_stats import chroma_stats
 from stutter_tpu_torch.ops.masked import frame_mask, masked_mean_std
 from stutter_tpu_torch.ops.spectral import db_from_mel
 from stutter_tpu_torch.ops.spectromel import spectromel
+from stutter_tpu_torch.parallel.mesh import resolve_mesh, shard_batch
 
 # Sample-count buckets (multiples of hop=512) covering 0.45-10.1 s at 16 kHz.
 DEFAULT_BUCKETS = (24576, 49152, 98304, 163840)
@@ -82,6 +82,24 @@ def pad_to_bucket(n: int, buckets=DEFAULT_BUCKETS) -> int:
     return buckets[-1]
 
 
+def sharded_batch_fn(batch_fn, mesh):
+    """`batch_fn(audio [B, N], lengths [B]) -> [B, D]` over the mesh ->
+    `run(audio, lengths) -> numpy [B, D]`: the batch (numpy or tensors, B a
+    multiple of the mesh's size) cut into one contiguous shard per device
+    (parallel.mesh.shard_batch), every shard uploaded and then launched
+    before any is read back, so the devices run at once, and the results
+    gathered in mesh order.  Clips are independent, so nothing crosses
+    between shards; a mesh of one is the batch on its device."""
+
+    def run(audio, lengths) -> np.ndarray:
+        shards = shard_batch(mesh, audio, lengths)
+        with torch.no_grad():
+            outs = [batch_fn(a, n) for a, n in zip(*shards)]
+        return torch.cat([o.cpu() for o in outs]).numpy()
+
+    return run
+
+
 def run_bucketed(
     clips: list[np.ndarray],
     batch_fn,
@@ -89,10 +107,16 @@ def run_bucketed(
     buckets=DEFAULT_BUCKETS,
     batch_size: int = 256,
     device: torch.device | str = "cuda",
+    mesh=None,
 ) -> np.ndarray:
     """Group clips by sample bucket, pad, run `batch_fn(audio [B, N],
-    lengths [B]) -> [B, out_dim]` on `device`, and restore the order."""
-    device = resolve_device(device)
+    lengths [B]) -> [B, out_dim]` over the mesh (sharded_batch_fn), and
+    restore the order.  The mesh is `mesh`, or every visible GPU for an
+    unindexed `cuda` and the one device asked for otherwise
+    (parallel.mesh.resolve_mesh); a batch is padded to a multiple of its
+    size with zero-length rows, whose outputs are dropped."""
+    mesh = resolve_mesh(mesh, device)
+    run = sharded_batch_fn(batch_fn, mesh)
     out = np.zeros((len(clips), out_dim), np.float32)
     by_bucket: dict[int, list[int]] = {}
     for i, y in enumerate(clips):
@@ -100,14 +124,14 @@ def run_bucketed(
     for bucket, idxs in by_bucket.items():
         for s in range(0, len(idxs), batch_size):
             chunk = idxs[s : s + batch_size]
-            batch = np.zeros((len(chunk), bucket), np.float32)
-            lens = np.zeros(len(chunk), np.int32)
+            rows = -(-len(chunk) // len(mesh)) * len(mesh)
+            batch = np.zeros((rows, bucket), np.float32)
+            lens = np.zeros(rows, np.int32)
             for j, i in enumerate(chunk):
                 y = clips[i][:bucket]
                 batch[j, : len(y)] = y
                 lens[j] = len(y)
-            feats = batch_fn(torch.from_numpy(batch).to(device), torch.from_numpy(lens).to(device))
-            out[chunk] = feats.cpu().numpy()
+            out[chunk] = run(batch, lens)[: len(chunk)]
     return out
 
 
@@ -137,7 +161,9 @@ def extract_features_numpy(
     buckets=DEFAULT_BUCKETS,
     batch_size: int = 256,
     device: torch.device | str = "cuda",
+    mesh=None,
 ) -> np.ndarray:
-    """Clips -> [n, feature_cfg.total_feature_len] features on `device`."""
+    """Clips -> [n, feature_cfg.total_feature_len] features on `device`'s
+    mesh (run_bucketed)."""
     return run_bucketed(clips, batch_extractor_for(feature_cfg), feature_cfg.total_feature_len,
-                        buckets, batch_size, device)
+                        buckets, batch_size, device, mesh)

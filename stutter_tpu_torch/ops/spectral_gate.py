@@ -149,9 +149,9 @@ def _spectral_gate_cuda(chunks, n_fft, hop, cfg):
              synth_row_tile(T + ratio - 1, B, n_fft, hop, f_taps.numel()))
     fn = _build.bind("spectral_gate", "spectral_gate_launch", 9, 9, 5)
     ptrs = [t.data_ptr() for t in (chunks, win, tw, f_taps, t_taps, winv, mag, mk, out)]
-    rc = fn(*ptrs, B, C, n_fft, hop, f_taps.numel(), t_taps.numel(), *tiles,
-            b, 1.0 - b, cfg.thresh_n_mult_nonstationary, cfg.sigmoid_slope_nonstationary,
-            cfg.prop_decrease, _build.stream_of(chunks))
+    rc = _build.launch(fn, chunks, *ptrs, B, C, n_fft, hop, f_taps.numel(), t_taps.numel(),
+                       *tiles, b, 1.0 - b, cfg.thresh_n_mult_nonstationary,
+                       cfg.sigmoid_slope_nonstationary, cfg.prop_decrease)
     _build.check(rc, "spectral_gate_launch")
     spectral_gate.launches += 1
     return out

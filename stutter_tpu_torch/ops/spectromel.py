@@ -128,14 +128,13 @@ def _spectromel_cuda(audio, lengths, sr, n_fft, hop, n_mels, n_mfcc, n_chroma, w
     # Python-float scalar is
     c_ln2 = n_chroma / math.log(2.0)
     tile = frame_tile(n_fft, T, B)
-    stream = _build.stream_of(audio)
     if not with_stats:
         fn = _build.bind("spectromel", "spectromel_mel_launch", 13, 8, 1)
         # a null tuning-bin pointer skips the tail launch
         ptrs = [t.data_ptr() for t in (audio, lengths, win, tw, ranges, weights, rtab, power,
                                        mel, keys, bins, counts)] + [tb.data_ptr() if with_tuning
                                                                     else None]
-        rc = fn(*ptrs, B, N, n_fft, hop, tile, n_mels, lo, hi, c_ln2, stream)
+        rc = _build.launch(fn, audio, *ptrs, B, N, n_fft, hop, tile, n_mels, lo, hi, c_ln2)
         _build.check(rc, "spectromel_mel_launch")
         spectromel.mel_launches += 1
         return power, mel, tb
@@ -143,7 +142,7 @@ def _spectromel_cuda(audio, lengths, sr, n_fft, hop, n_mels, n_mfcc, n_chroma, w
     fn = _build.bind("spectromel", "spectromel_launch", 16, 9, 1)
     ptrs = [t.data_ptr() for t in (audio, lengths, win, tw, ranges, weights, rtab, dct_t, sg,
                                    power, mel, keys, bins, counts, stats, tb)]
-    rc = fn(*ptrs, B, N, n_fft, hop, tile, n_mels, n_mfcc, lo, hi, c_ln2, stream)
+    rc = _build.launch(fn, audio, *ptrs, B, N, n_fft, hop, tile, n_mels, n_mfcc, lo, hi, c_ln2)
     _build.check(rc, "spectromel_launch")
     spectromel.launches += 1
     return power, stats, tb

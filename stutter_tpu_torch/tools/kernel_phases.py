@@ -164,10 +164,10 @@ def gate_runner(lib, dev):
         ctypes.c_void_p]
     ptrs = [t.data_ptr() for t in (chunks, win, tw, f_taps, t_taps, winv, mag, mk, out)]
     b = consts.iir_coefficient(cfg)
-    stream = _build.stream_of(chunks)
-    return lambda: fn(*ptrs, B, C, 1024, 256, f_taps.numel(), t_taps.numel(), *tiles, b, 1 - b,
-                      cfg.thresh_n_mult_nonstationary, cfg.sigmoid_slope_nonstationary,
-                      cfg.prop_decrease, stream)
+    return lambda: _build.launch(fn, chunks, *ptrs, B, C, 1024, 256, f_taps.numel(),
+                                 t_taps.numel(), *tiles, b, 1 - b,
+                                 cfg.thresh_n_mult_nonstationary,
+                                 cfg.sigmoid_slope_nonstationary, cfg.prop_decrease)
 
 
 def spectromel_runner(lib, dev):
@@ -200,9 +200,9 @@ def spectromel_runner(lib, dev):
     fn = lib.spectromel_launch
     fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     ptrs = [x.data_ptr() for x in (audio, lengths, *tables, *outs)]
-    stream = _build.stream_of(audio)
-    return lambda: fn(*ptrs, B, N, n_fft, hop, consts.frame_tile(n_fft, T, B), 128, 20, lo, hi,
-                      12 / math.log(2.0), stream)
+    return lambda: _build.launch(fn, audio, *ptrs, B, N, n_fft, hop,
+                                 consts.frame_tile(n_fft, T, B), 128, 20, lo, hi,
+                                 12 / math.log(2.0))
 
 
 def chroma_runner(lib, dev):
@@ -224,9 +224,8 @@ def chroma_runner(lib, dev):
     fn = lib.chroma_stats_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     ptrs = [x.data_ptr() for x in (power, tb, nv, table, out)]
-    stream = _build.stream_of(power)
-    return lambda: fn(*ptrs, B, T, K, table.shape[1], table.shape[0] // 12,
-                      cs.cluster_size(B, T), stream)
+    return lambda: _build.launch(fn, power, *ptrs, B, T, K, table.shape[1], table.shape[0] // 12,
+                                 cs.cluster_size(B, T))
 
 
 RUNNERS = {"spectral_gate.cu": gate_runner, "spectromel.cu": spectromel_runner,

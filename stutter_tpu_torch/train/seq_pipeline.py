@@ -117,17 +117,20 @@ def cross_validate_seq(
     soft_targets: np.ndarray | None = None,
     *,
     device: torch.device | str = "cuda",
+    mesh=None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """K-fold CV for a sequence head; returns (y_pred, y_proba) in row order.
 
     The folds x seeds grid (G = K * n_seeds entries) trains in equal chunks
-    of at most `grid_chunk` entries (train_seq_grid), sharing the dataset,
-    which is featurized once; each entry carries its fold's sampling weights
-    and standardization stats (train rows only) and the seed
-    train_cfg.seed + s.  n_seeds > 1 soft-votes each fold's members.  A
-    chunk's activations grow with its entries x batch x frames x features,
-    so the chunk bounds the device memory a grid takes; an entry's result
-    does not depend on it.
+    of at most `grid_chunk` entries a device, the chunk split over the mesh
+    (train_seq_grid_sharded; every visible GPU for an unindexed `cuda`, as
+    parallel.mesh.resolve_mesh says), sharing the dataset, which is
+    featurized once on the mesh's first device; each entry carries its
+    fold's sampling weights and standardization stats (train rows only) and
+    the seed train_cfg.seed + s.  n_seeds > 1 soft-votes each fold's
+    members.  A chunk's activations grow with its entries x batch x frames
+    x features, so `grid_chunk` bounds the memory a grid takes on a device;
+    an entry's result depends neither on it nor on the mesh.
     tta_crops: for each crop c (frames) also predict a start-cropped view
     (features shifted left by c, c fewer valid frames) and an end-cropped
     view (the last c valid frames masked) and average them with the
@@ -136,9 +139,11 @@ def cross_validate_seq(
     soft_targets [N, C]: train every entry on these probability targets
     instead of the smoothed one-hot labels; `y` keeps the folds and the
     evaluation."""
-    from stutter_tpu_torch.train.seq_trainer import predict_seq_grid, train_seq_grid
+    from stutter_tpu_torch.parallel.mesh import resolve_mesh
+    from stutter_tpu_torch.train.seq_trainer import predict_seq_grid, train_seq_grid_sharded
 
-    dev = resolve_device(device)
+    mesh = resolve_mesh(mesh, device)
+    dev = mesh[0]
     spec = ARCHS[arch]
     X, nv = prepare_sequence_dataset(clips, kind=spec["kind"], device=dev)
     N, _, D = X.shape
@@ -161,7 +166,7 @@ def cross_validate_seq(
             seeds[g] = train_cfg.seed + s
     n_train = max(len(tr) for tr, _ in folds)
 
-    chunk = max(1, min(grid_chunk, G))
+    chunk = max(1, min(grid_chunk * len(mesh), G))
     while G % chunk:
         chunk -= 1
 
@@ -174,17 +179,17 @@ def cross_validate_seq(
     probs = np.zeros((len(views), G, N, n_classes), np.float32)
     for g0 in range(0, G, chunk):
         g1 = g0 + chunk
-        grid = train_seq_grid(
-            X, nv, y, w[g0:g1], mean_g[g0:g1], std_g[g0:g1], seeds[g0:g1],
+        grids = train_seq_grid_sharded(
+            mesh, X, nv, y, w[g0:g1], mean_g[g0:g1], std_g[g0:g1], seeds[g0:g1],
             module=spec["module"], init_fn=spec["init_fn"],
             init_items=tuple(sorted(spec["init_kwargs"](n_classes).items())),
             n_classes=n_classes, cfg=train_cfg, n_train=n_train, y_soft=soft_targets,
-            device=dev,
         )
-        for v, (Xv, nvv) in enumerate(views):
-            probs[v, g0:g1] = predict_seq_grid(grid, Xv, nvv, mean_g[g0:g1], std_g[g0:g1],
-                                               batch=64)
-        del grid
+        for s, grid in grids:
+            g = slice(g0 + s.start, g0 + s.stop)
+            for v, (Xv, nvv) in enumerate(views):
+                probs[v, g] = predict_seq_grid(grid, Xv, nvv, mean_g[g], std_g[g], batch=64)
+        del grids
 
     # each fold's held-out rows, soft-voted over its seeds, per view; the
     # returned proba averages the views (== identity when tta_crops is empty)

@@ -404,6 +404,24 @@ def train_sequence_model(
     return grid.params()[0]
 
 
+def _grid_parts(X, nv, y, w, mean_g, std_g, seeds, *, module, init_fn, init_items: tuple,
+                n_classes: int, cfg: SeqTrainConfig, n_train: int, y_soft=None,
+                device: torch.device | str = "cuda"):
+    """A grid's heads, their trainer and their steps' inputs on `device`
+    (train_seq_grid's arguments) -> (SeqGrid, SeqGridTrainer, GridSteps,
+    the step count)."""
+    from stutter_tpu_torch.train.trainer import total_steps
+
+    dev = resolve_device(device)
+    D = X.shape[2]
+    n_steps = total_steps(cfg, n_train)
+    grid = SeqGrid(module, _inits(init_fn, seeds, dict(init_items)), dev)
+    steps = GridSteps(X, nv, row_targets(y, n_classes, cfg, y_soft), mean_g, std_g,
+                      [draw_steps(int(s), w[g], nv, n_steps, cfg, D) for g, s in enumerate(seeds)],
+                      seeds, cfg, dev)
+    return grid, SeqGridTrainer(grid, cfg, n_steps), steps, n_steps
+
+
 def train_seq_grid(
     X: np.ndarray,  # [N, T, D] raw (unstandardized) features, SHARED
     nv: np.ndarray,  # [N] valid frame counts, shared
@@ -432,19 +450,35 @@ def train_seq_grid(
     weights, so it trains as it would alone.  y_soft: per-row probability
     targets replace the smoothed one-hot labels; `y` then drives nothing in
     the loss."""
-    from stutter_tpu_torch.train.trainer import total_steps
-
-    dev = resolve_device(device)
-    D = X.shape[2]
-    n_steps = total_steps(cfg, n_train)
-    grid = SeqGrid(module, _inits(init_fn, seeds, dict(init_items)), dev)
-    trainer = SeqGridTrainer(grid, cfg, n_steps)
-    steps = GridSteps(X, nv, row_targets(y, n_classes, cfg, y_soft), mean_g, std_g,
-                      [draw_steps(int(s), w[g], nv, n_steps, cfg, D) for g, s in enumerate(seeds)],
-                      seeds, cfg, dev)
+    grid, trainer, steps, n_steps = _grid_parts(
+        X, nv, y, w, mean_g, std_g, seeds, module=module, init_fn=init_fn,
+        init_items=init_items, n_classes=n_classes, cfg=cfg, n_train=n_train, y_soft=y_soft,
+        device=device)
     for t in range(n_steps):
         trainer.step(*steps.batch(t))
     return grid
+
+
+def train_seq_grid_sharded(mesh, X, nv, y, w, mean_g, std_g, seeds,
+                           **kw) -> list[tuple[slice, SeqGrid]]:
+    """train_seq_grid with the grid's entries split over the mesh into
+    contiguous slices (parallel.mesh.grid_shards) -> (slice, its SeqGrid)
+    per device.  The devices train in lockstep: step t of every device is
+    launched before step t + 1 of any, so they run at once.  An entry's
+    draws are its own, so its result does not depend on the mesh; a mesh of
+    one is train_seq_grid."""
+    from stutter_tpu_torch.parallel.mesh import grid_shards
+
+    shards = grid_shards(len(seeds), mesh)
+    if len(shards) == 1:
+        dev, s = shards[0]
+        return [(s, train_seq_grid(X, nv, y, w, mean_g, std_g, seeds, device=dev, **kw))]
+    parts = [_grid_parts(X, nv, y, w[s], mean_g[s], std_g[s], seeds[s], device=dev, **kw)
+             for dev, s in shards]
+    for t in range(parts[0][3]):
+        for _, trainer, steps, _ in parts:
+            trainer.step(*steps.batch(t))
+    return [(s, grid) for (_, s), (grid, *_) in zip(shards, parts)]
 
 
 def predict_seq_grid(grid: SeqGrid, X: np.ndarray, n_valid: np.ndarray, mean_g: np.ndarray,

@@ -23,7 +23,10 @@ The port holds optax's parts, not its random bits:
   * grid entry (fold k, seed s) starts from init_mlp(cfg.seed + s) in every
     fold, drawn on the host from np.random.RandomState, so every device
     starts from the same weights; batches and dropout masks come from one
-    torch.Generator on the device, with no host sync per step.
+    torch.Generator on the device, with no host sync per step;
+  * over a mesh of devices the grid's entries split into contiguous slices,
+    one GridTrainer each, while the draws stay whole on the first device
+    (`train_mlp_grid`): a mesh changes where an entry trains, not what.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 
 from stutter_tpu_torch.device import resolve_device
 from stutter_tpu_torch.models.mlp import SeedMLP, apply_mlp_grid, init_mlp
+from stutter_tpu_torch.parallel.mesh import grid_shards, resolve_mesh
 
 LR_FLOOR = 0.01  # cosine_decay_schedule's alpha
 
@@ -114,37 +118,67 @@ class GridTrainer:
         return out
 
 
+def draw_rows(w, cfg: MLPTrainConfig, gen: torch.Generator):
+    """A step's draws for the grid from `gen` on w's device: rows idx [G, B]
+    of each entry's sample mask w [G, N], with replacement and probability
+    w / sum w, then the hidden layers' dropout keep-masks [G, B, h] (None
+    without dropout)."""
+    G = w.shape[0]
+    idx = torch.multinomial(w, cfg.batch_size, replacement=True, generator=gen)
+    keeps = None
+    if cfg.dropout > 0.0:
+        keeps = [torch.rand(G, cfg.batch_size, h, generator=gen, device=w.device)
+                 < 1.0 - cfg.dropout for h in cfg.hidden]
+    return idx, keeps
+
+
+def gather_rows(X, y, w, idx):
+    """Each entry's drawn rows idx [G, B] of X [G, N, D], y [G, N], w [G, N]."""
+    rows = torch.arange(X.shape[0], device=X.device)[:, None]
+    return X[rows, idx], y[rows, idx], w[rows, idx]
+
+
 def draw_batch(X, y, w, cfg: MLPTrainConfig, gen: torch.Generator):
     """A batch per grid entry from X [G, N, D], y [G, N], w [G, N], drawn
     with replacement with probability w / sum w, and the dropout keep-masks,
     both from `gen` on the data's device -> the arguments of
     GridTrainer.step."""
-    G = X.shape[0]
-    idx = torch.multinomial(w, cfg.batch_size, replacement=True, generator=gen)
-    rows = torch.arange(G, device=X.device)[:, None]
-    keeps = None
-    if cfg.dropout > 0.0:
-        keeps = [torch.rand(G, cfg.batch_size, h, generator=gen, device=X.device)
-                 < 1.0 - cfg.dropout for h in cfg.hidden]
-    return X[rows, idx], y[rows, idx], w[rows, idx], keeps
+    idx, keeps = draw_rows(w, cfg, gen)
+    return (*gather_rows(X, y, w, idx), keeps)
 
 
 def train_mlp_grid(X, y, w, seeds, cfg: MLPTrainConfig, n_train: int, *,
-                   device: torch.device | str = "cuda") -> dict[str, torch.Tensor]:
+                   device: torch.device | str = "cuda", mesh=None) -> dict[str, torch.Tensor]:
     """Train G independent MLPs together on X [G, N, D], y [G, N], the
     sample mask w [G, N] (0 for padding) and seeds [G] -> stacked params
-    {w{i}: [G, d_in, d_out], b{i}: [G, d_out]} on `device`."""
-    dev = resolve_device(device)
-    X = torch.as_tensor(X, dtype=torch.float32, device=dev)
-    y = torch.as_tensor(y, dtype=torch.int64, device=dev)
-    w = torch.as_tensor(w, dtype=torch.float32, device=dev)
+    {w{i}: [G, d_in, d_out], b{i}: [G, d_out]} on the mesh's first device.
+
+    The mesh (parallel.mesh.resolve_mesh of `mesh` and `device`) splits the
+    grid into contiguous slices (grid_shards), each trained by its own
+    GridTrainer on its device, the devices stepped in turn.  Every step's
+    rows and dropout masks are drawn for the whole grid on the first device
+    from one generator and each device is sent its slice, so the draws, and
+    the result, do not depend on the mesh."""
+    shards = grid_shards(len(seeds), resolve_mesh(mesh, device))
+    dev0 = shards[0][0]
+    seeds = np.asarray(list(seeds))
+    w0 = torch.as_tensor(w, dtype=torch.float32, device=dev0)
     n_steps = total_steps(cfg, n_train)
-    trainer = GridTrainer(init_grid(seeds, X.shape[-1], cfg, dev), cfg, n_steps)
-    gen = torch.Generator(device=dev)
+    parts = []
+    for dev, s in shards:
+        data = (torch.as_tensor(X[s], dtype=torch.float32, device=dev),
+                torch.as_tensor(y[s], dtype=torch.int64, device=dev), w0[s].to(dev))
+        parts.append((dev, s, data,
+                      GridTrainer(init_grid(seeds[s], X.shape[-1], cfg, dev), cfg, n_steps)))
+    gen = torch.Generator(device=dev0)
     gen.manual_seed(cfg.seed)
     for _ in range(n_steps):
-        trainer.step(*draw_batch(X, y, w, cfg, gen))
-    return trainer.params()
+        idx, keeps = draw_rows(w0, cfg, gen)
+        for dev, s, data, trainer in parts:
+            trainer.step(*gather_rows(*data, idx[s].to(dev)),
+                         None if keeps is None else [k[s].to(dev) for k in keeps])
+    params = [trainer.params() for *_, trainer in parts]
+    return {k: torch.cat([p[k].to(dev0) for p in params]) for k in params[0]}
 
 
 @torch.no_grad()
@@ -157,17 +191,20 @@ def predict_proba_grid(params: dict[str, torch.Tensor], X: torch.Tensor) -> torc
 
 
 def fit_mlp(X: np.ndarray, y: np.ndarray, cfg: MLPTrainConfig = MLPTrainConfig(), *,
-            device: torch.device | str = "cuda") -> SeedMLP:
-    """Train one seed-ensembled MLP (cfg.n_seeds members) on all of (X, y)
-    -> the SeedMLP that persist.save_mlp writes and Predictor serves."""
-    dev = resolve_device(device)
+            device: torch.device | str = "cuda", mesh=None) -> SeedMLP:
+    """Train one seed-ensembled MLP (cfg.n_seeds members) on all of (X, y),
+    its seeds over the mesh (train_mlp_grid) -> the SeedMLP that
+    persist.save_mlp writes and Predictor serves, on the mesh's first
+    device."""
+    mesh = resolve_mesh(mesh, device)
+    dev = mesh[0]
     G = cfg.n_seeds
     N, D = X.shape
     Xg = torch.as_tensor(np.asarray(X, np.float32), device=dev).expand(G, N, D)
     yg = torch.as_tensor(np.asarray(y, np.int64), device=dev).expand(G, N)
     wg = torch.ones(G, N, device=dev)
     params = train_mlp_grid(Xg, yg, wg, range(cfg.seed, cfg.seed + G), cfg, n_train=N,
-                            device=dev)
+                            mesh=mesh)
     n = len(params) // 2
     return SeedMLP([params[f"w{i}"] for i in range(n)], [params[f"b{i}"] for i in range(n)])
 
@@ -179,13 +216,16 @@ def cross_validate_mlp(
     cfg: MLPTrainConfig = MLPTrainConfig(),
     *,
     device: torch.device | str = "cuda",
+    mesh=None,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """K-fold CV with all folds x seeds trained as one grid.
+    """K-fold CV with all folds x seeds trained as one grid, split over the
+    mesh (train_mlp_grid; every visible GPU for an unindexed `cuda`).
 
     folds: list of (train_idx, test_idx).  Returns (y_pred, y_proba) aligned
     with X's row order (each row predicted by the fold that held it out, the
     soft vote of its cfg.n_seeds members)."""
-    dev = resolve_device(device)
+    mesh = resolve_mesh(mesh, device)
+    dev = mesh[0]
     K = len(folds)
     G = K * cfg.n_seeds
     N, D = X.shape
@@ -202,7 +242,7 @@ def cross_validate_mlp(
             yg[g, : len(tr)] = y[tr]
             wg[g, : len(tr)] = 1.0
             seeds[g] = cfg.seed + s
-    params = train_mlp_grid(Xg, yg, wg, seeds, cfg, n_train=n_tr_max, device=dev)
+    params = train_mlp_grid(Xg, yg, wg, seeds, cfg, n_train=n_tr_max, mesh=mesh)
 
     # every grid entry on the full X, then each fold's test rows
     Xfull = torch.as_tensor(np.asarray(X, np.float32), device=dev).expand(G, N, D)

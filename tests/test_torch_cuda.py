@@ -445,3 +445,59 @@ def test_fed_seq_grid_steps_on_the_card_equal_the_cpu(cuda, arch):
     for g in range(G):
         for k, ref in out["cpu"][g].items():  # normwise: see chip_smoke.step_errors
             assert np.linalg.norm(out["cuda"][g][k] - ref) / np.linalg.norm(ref) < 1e-4, (g, k)
+
+
+def test_kernels_launch_on_their_tensors_device_not_the_current_one(cuda):
+    """Each kernel on the last visible GPU while the current device stays
+    cuda:0: within its bound of the plain version there, its output on that
+    device, the current device unchanged.  One card cannot show this (its
+    tensor's device is always the current one), so it skips below two."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs: on one card a tensor's device is always the current one")
+    from stutter_tpu_torch.denoise import denoise_batch
+    from stutter_tpu_torch.ops.chroma_stats import chroma_stats, chroma_stats_plain
+    from stutter_tpu_torch.ops.spectral_gate import spectral_gate_plain
+    from stutter_tpu_torch.ops.spectromel import spectromel, spectromel_plain
+
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    audio = torch.from_numpy(_clips(19, 3, 49152)).to(last)
+    le = torch.tensor([49152, 30000, 49152], dtype=torch.int32, device=last)
+    audio[1, 30000:] = 0
+    p, st, tb = spectromel(audio, le)
+    pp, stp, _ = spectromel_plain(audio, le)
+    assert p.device == st.device == tb.device == last
+    assert float((p - pp).abs().max() / pp.abs().max()) < 1e-5
+    assert float((st - stp).abs().max()) < 2e-3
+    p, m, _ = spectromel(audio, le, n_fft=512, hop_length=256, with_stats=False)
+    _, mp, _ = spectromel_plain(audio, le, n_fft=512, hop_length=256, with_stats=False)
+    assert m.device == last and float((m - mp).abs().max() / mp.abs().max()) < 1e-4
+    p, _, tb = spectromel(audio, le)
+    nv = 1 + le // 512
+    got = chroma_stats(p, tb, nv)
+    assert got.device == last
+    assert float((got - chroma_stats_plain(p, tb, nv)).abs().max()) < 1e-5
+    got = denoise_batch(audio, le, DenoiseConfig())
+    ref = denoise_batch(audio, le, DenoiseConfig(), gate=spectral_gate_plain)
+    assert got.device == last and float((got - ref).abs().max()) < 0.03
+    assert torch.cuda.current_device() == 0
+
+
+def test_sharded_paths_on_a_split_of_one_card_equal_unsharded(cuda):
+    """make_mesh(devices=[cuda:0] * 2): the front end and the gate cut into
+    two shards on one card and gathered in order equal the batch unsharded
+    (which checks the split and the gather, not two devices)."""
+    from stutter_tpu_torch.denoise import denoise_batch
+    from stutter_tpu_torch.ops.frontend import extract_features_149_batch
+    from stutter_tpu_torch.parallel import mesh as M
+
+    mesh = M.make_mesh(devices=[M.make_mesh()[0]] * 2)
+    audio = _clips(20, 4, 49152)
+    lengths = np.array([49152, 30000, 12000, 49152], np.int32)
+    for b, n in enumerate(lengths):
+        audio[b, n:] = 0
+    a, n = torch.from_numpy(audio).to(mesh[0]), torch.from_numpy(lengths).to(mesh[0])
+    feats = M.extract_features_sharded(mesh, audio, lengths)
+    assert np.abs(feats - extract_features_149_batch(a, n).cpu().numpy()).max() <= 1e-5
+    gated = M.denoise_sharded(mesh, audio, lengths)
+    assert np.abs(gated - denoise_batch(a, n).cpu().numpy()).max() <= 1e-5
