@@ -106,14 +106,42 @@
    PAR_TOL (max abs diff printed), labels and predictions equal, a mesh of
    one bitwise equal to the unsharded wrappers; each path's wall, sharded
    and unsharded, the median of PAR_REPS runs; one `parallel` JSON line.
-11. Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
+11. The port's timing and trace primitives (utils.profiling) on the main
+   path, after phase 6, in a process of its own (`profiling_main`: the
+   card machine's profiler drops device events in a long process) and
+   from their own numpy seed: prints mp3.available()
+   and native_available() on this machine, then block_and_time (10
+   dispatches) of a 3 s 149-dim predict_clip (denoise on), a 3 s
+   predict_clip of the vote, extract_features_149_batch at B=256 x 3 s (a
+   device tensor out) and the same batch over make_mesh(devices=["cuda:0"]
+   * 2), both through extract_features_sharded and as the shards' device
+   tensors (and over the last GPU when there are more), each held to at
+   least 0.9 x the device time device_profile reads for the same call (a
+   window with a device kernel for every launch) and printed beside that
+   call's CUDA-event median; then trace() around one request of each model
+   (traced anew, up to TRACE_ATTEMPTS times, where a trace raises
+   TraceIncomplete): one trace file that parses as JSON, with a
+   device event for each __global__ kernel of the path (the gate's three,
+   spectromel's three and chroma_stats_kernel for the 149-dim request; the
+   gate's three and spectromel_frames for the vote), one per launch of its
+   wrapper as launch_counts reads them.
+12. Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
 
 Phase 2 also holds the kernels at the stream paths' shapes: the vote's
 segment, one [1, 2**20] buffer, through the gate and the mel mode without
 the tuning tail (as the sequence featurizer runs it), and the MLP stream's
 windows, [64, 48128], through the stats mode and chroma_stats.
 
-Each of the paths 3-5 and 7-10 runs with every launch count set to 0 just
+Every profile window (device_ms, device_profile, trace) is
+utils.profiling.profile_window's: on the card machine the profiler loses
+the first kernels of a window, more as a process runs, so the window
+opens on idle host time and a burst of tiny kernels (left out of every
+count and time here).  A window that still holds fewer kernels than
+launches is retaken (kernel_times up to 3 times,
+then it raises; phase 11's device_profile up to 3 times, then the phase
+fails); the other profiles print whether their window was complete.
+
+Each of the paths 3-5 and 7-11 runs with every launch count set to 0 just
 before it and read just after, and fails if a kernel it uses never
 launched.
 
@@ -490,30 +518,46 @@ def compare_gate(rng, dev, B: int, N: int, timed: bool) -> dict:
     return res
 
 
-def device_profile(fn, reps: int = 3) -> dict:
-    """torch.profiler over `reps` calls of `fn` after a warm one: wall ms
-    per call (under the profiler), device ms per call (the kernels' and
-    copies' durations), the device's idle share of the wall time, launches
-    per call, and the eight kernels with the most device time."""
+def device_profile(fn, reps: int = 3, attempts: int = 1) -> dict:
+    """torch.profiler over `reps` calls of `fn` after a warm one, in a
+    window of utils.profiling.profile_window, retaken up to
+    `attempts` times until it holds a device kernel for every launch (a
+    window over many training steps takes tens of seconds, so only phase
+    11, which checks completeness, retakes):
+    wall ms per call (under the profiler), device ms per call (the
+    kernels' and copies' durations), the device's idle share of the wall
+    time, launches per call, the eight kernels with the most device time,
+    whether the window was complete and the windows it took."""
     import re
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from stutter_tpu_torch.utils.profiling import (
+        BURST_KERNEL, WINDOW_BURST, TraceIncomplete, check_complete, profile_window)
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
+    for attempt in range(1, attempts + 1):
+        with profile_window([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+        try:
+            check_complete(prof.events(), "device_profile's window", WINDOW_BURST)
+            complete = True
+            break
+        except TraceIncomplete:
+            complete = False
     by_name: dict[str, list] = {}
     for e in prof.events():
         # kernels and copies only: a user annotation (the optimizer's
         # `Optimizer.step#Adam.step` range) lies on the device's timeline
         # too, over the kernels it encloses
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
+        if (e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation
+                or BURST_KERNEL in e.name):
             continue
         name = re.sub(r"\(anonymous namespace\)::", "", e.name).split("(")[0][:60]
         acc = by_name.setdefault(name, [0.0, 0])
@@ -524,7 +568,8 @@ def device_profile(fn, reps: int = 3) -> dict:
     return {"wall_ms": wall, "device_ms": device,
             "idle_share": 1.0 - device / wall if wall > 0 else None,
             "launches": sum(v[1] for v in by_name.values()) / reps,
-            "top": [[k, v[0], v[1] / reps] for k, v in top]}
+            "top": [[k, v[0], v[1] / reps] for k, v in top],
+            "complete": complete, "windows": attempt}
 
 
 def profile_batches(rng, dev) -> dict:
@@ -1566,6 +1611,157 @@ def parallel_phase(rng, dev, out_dir: str) -> dict:
     return res
 
 
+# phase 11: block_and_time's dispatches a call; the __global__ kernels a
+# trace must show, by the wrapper (launch_counts) that launches each
+PROF_ITERS = 10
+TRACE_ATTEMPTS = 3
+TRACE_KERNELS = {"gate_analysis": "spectral_gate", "gate_iir_mask": "spectral_gate",
+                 "gate_synth": "spectral_gate", "spectromel_frames": "spectromel",
+                 "spectromel_stats": "spectromel", "tuning_tail": "spectromel",
+                 "chroma_stats_kernel": "chroma_stats"}
+TRACED = {"request_149": tuple(TRACE_KERNELS),
+          "request_vote": ("gate_analysis", "gate_iir_mask", "gate_synth", "spectromel_frames")}
+
+
+def trace_kernel_events(logdir: str) -> dict:
+    """The one trace file under `logdir`: its size, and its kernel events
+    (profile_window's burst left out) by the __global__ name each of
+    TRACE_KERNELS matches."""
+    import glob
+    import re
+
+    from stutter_tpu_torch.utils.profiling import BURST_KERNEL
+
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    check(len(files) == 1, f"trace: expected one trace file in {logdir}, found {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events
+             if e.get("cat") == "kernel" and BURST_KERNEL not in e.get("name", "")]
+    return {"bytes": os.path.getsize(files[0]), "kernel_events": len(names),
+            "events": {k: sum(bool(re.search(rf"\b{k}\b", n)) for n in names)
+                       for k in TRACE_KERNELS}}
+
+
+def check_trace(res: dict, launches: dict, kernels, what: str) -> None:
+    """Each of `kernels` has a device event in the trace, and every traced
+    kernel has one event per launch of its wrapper: the gate's three and
+    spectromel's launch 1 for each launch of either spectromel mode, its
+    stats launch for each stats-mode launch, the tail for each stats-mode
+    launch and at most each mel-mode one (the sequence featurizer's runs
+    without it), chroma_stats_kernel for each chroma_stats launch."""
+    ev, sm, mel = res["events"], launches["spectromel"], launches["spectromel_mel"]
+    want = {k: launches[w] for k, w in TRACE_KERNELS.items()}
+    want["spectromel_frames"] = sm + mel
+    for k in kernels:
+        check(ev[k] > 0, f"{what}: no device event of {k} in the trace: {ev}")
+    for k, n in want.items():
+        ok = sm <= ev[k] <= sm + mel if k == "tuning_tail" else ev[k] == n
+        check(ok, f"{what}: {ev[k]} events of {k} in the trace, launches {launches}")
+
+
+def profiling_phase(rng, dev, out_dir: str) -> dict:
+    """Phase 11: the port's timing and trace primitives (utils.profiling)
+    on the main path.  block_and_time on a 3 s 149-dim request, a 3 s
+    request to the vote, the 149-dim front end at B=256 x 3 s (a device
+    tensor out) and the same batch over a two-shard mesh on one card (and
+    on the last GPU when there are more), each no shorter than 0.9 x the
+    device time device_profile reads for the same call, beside that call's
+    CUDA-event median; then trace() around one request of each model, each
+    kernel of the path in the trace once per launch of its wrapper."""
+    import torch
+
+    from stutter_tpu_torch.config import PipelineConfig
+    from stutter_tpu_torch.infer import EnsemblePredictor, Predictor
+    from stutter_tpu_torch.io import mp3
+    from stutter_tpu_torch.io.native import native_available
+    from stutter_tpu_torch.ops.frontend import extract_features_149_batch
+    from stutter_tpu_torch.parallel.mesh import extract_features_sharded, make_mesh, shard_batch
+    from stutter_tpu_torch.utils.profiling import TraceIncomplete, block_and_time, trace
+
+    res = {"mp3_available": mp3.available(), "native_available": native_available(),
+           "iters": PROF_ITERS}
+    write_artifacts(rng, out_dir, dev, PipelineConfig())
+    write_quint(rng, out_dir, dev)
+    pred = Predictor.load(out_dir, device=dev)
+    ens = EnsemblePredictor.load(out_dir, device=dev)
+    pred.warmup()
+    ens.warmup()
+    y = structured_clips(rng, 1, 3 * SR)[0]
+    audio = torch.from_numpy(structured_clips(rng, 256, 49152)).to(dev)
+    audio[:, 48000:] = 0
+    lengths = torch.full((256,), 48000, dtype=torch.int32, device=dev)
+    n_gpus = torch.cuda.device_count()
+    meshes = {"cuda:0 x2": make_mesh(devices=["cuda:0"] * 2)}
+    if n_gpus > 1:
+        meshes[f"cuda:{n_gpus - 1} x2"] = make_mesh(devices=[f"cuda:{n_gpus - 1}"] * 2)
+
+    calls = {"predict_clip_149 3s": (dev, lambda: pred.predict_clip(y)),
+             "predict_clip_vote 3s": (dev, lambda: ens.predict_clip(y)),
+             "features_149 B=256 3s": (dev, lambda: extract_features_149_batch(audio, lengths))}
+    for key, mesh in meshes.items():
+        calls[f"extract_features_sharded {key}"] = (
+            mesh[0], lambda m=mesh: extract_features_sharded(m, audio, lengths))
+        # the shards' [128, 149] device tensors, left on their devices
+        calls[f"features_149 shards {key}"] = (mesh[0], lambda m=mesh: [
+            extract_features_149_batch(a, n) for a, n in zip(*shard_batch(m, audio, lengths))])
+    launch_counts(reset=True)
+    res["calls"] = {}
+    for name, (d, fn) in calls.items():
+        with torch.cuda.device(d):
+            bt_ms = block_and_time(fn, iters=PROF_ITERS) * 1e3
+            prof = device_profile(fn, attempts=3)
+            ev_ms = time_ms(fn)
+        res["calls"][name] = {"block_and_time_ms": bt_ms, "device_ms": prof["device_ms"],
+                              "profiled_wall_ms": prof["wall_ms"], "cuda_event_ms": ev_ms,
+                              "launches_per_call": prof["launches"],
+                              "profile_windows": prof["windows"]}
+        check(prof["complete"], f"{name}: every profile window lost device kernels")
+        check(bt_ms >= 0.9 * prof["device_ms"],
+              f"{name}: block_and_time {bt_ms:.3f} ms < 0.9 x device {prof['device_ms']:.3f} ms")
+
+    res["traces"] = {}
+    for name, fn in (("request_149", lambda: pred.predict_clip(y)),
+                     ("request_vote", lambda: ens.predict_clip(y))):
+        # a trace that lost device events raises TraceIncomplete: traced
+        # anew into a fresh directory, TRACE_ATTEMPTS times at most
+        for attempt in range(1, TRACE_ATTEMPTS + 1):
+            logdir = os.path.join(out_dir, f"trace_{name}_{attempt}")
+            before = launch_counts()
+            try:
+                with trace(logdir, device=dev):
+                    fn()
+                break
+            except TraceIncomplete:
+                check(attempt < TRACE_ATTEMPTS, f"trace {name}: every trace lost device events")
+        after = launch_counts()
+        launches = {k: after[k] - before[k] for k in after}
+        t = res["traces"][name] = {**trace_kernel_events(logdir), "launches": launches,
+                                   "attempts": attempt}
+        check_trace(t, launches, TRACED[name], f"trace {name}")
+    res["launches"] = launch_counts(reset=True)
+    check_launched(res["launches"], KERNELS, "profiling")
+    return res
+
+
+def profiling_main() -> int:
+    """Phase 11 in a process of its own, the kernels phase 1 built loaded
+    from the build directory: prints its result as one JSON line.  On the
+    card machine torch.profiler loses the first kernels of a window, more
+    as a process runs; the windows open on a burst that the loss takes
+    (utils.profiling.profile_window), and the traces this phase checks
+    are still taken where the loss is least, in a fresh process."""
+    from stutter_tpu_torch import _build
+    from stutter_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    for name in LIBRARIES:
+        _build.load_library(name)
+    with tempfile.TemporaryDirectory() as out_dir:
+        print(json.dumps(profiling_phase(np.random.RandomState(11), dev, out_dir)))
+    return 0
+
+
 def main() -> int:
     import concurrent.futures
 
@@ -1732,12 +1928,37 @@ def main() -> int:
     for name, prof in profiles.items():
         print(f"profile {name}: {json.dumps(prof)} ({card})")
 
+    # phase 11: timing and tracing, own generator, in a process of its own
+    child = subprocess.run([sys.executable, "-c",
+                            "import sys, chip_smoke; sys.exit(chip_smoke.profiling_main())"],
+                           cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                           text=True, timeout=600)
+    check(child.returncode == 0, f"phase 11 failed: {child.stderr[-4000:]}")
+    timing = json.loads(child.stdout.strip().splitlines()[-1])
+    print(f"decoders on this machine: mp3.available() {timing['mp3_available']}, "
+          f"native_available() {timing['native_available']}")
+    print(f"timing: {json.dumps(timing)}")
+    # the same call's CUDA-event medians from earlier phases, where there is one
+    earlier = {"predict_clip_149 3s": f"phase 3's p50 {serve['p50_ms']:.3f} ms over the mix",
+               "predict_clip_vote 3s": f"phase 7's p50 {head['p50_ms']:.3f} ms over the mix",
+               "features_149 B=256 3s": f"phase 2's spectromel + chroma_stats "
+                                        f"{sm['ms'] + cs['ms']:.3f} ms"}
+    for name, c in timing["calls"].items():
+        print(f"block_and_time {name}: {c['block_and_time_ms']:.3f} ms a call "
+              f"({timing['iters']} dispatches), device {c['device_ms']:.3f} ms (profiler), "
+              f"CUDA-event median {c['cuda_event_ms']:.3f} ms"
+              + (f"; {earlier[name]}" if name in earlier else "") + f" ({card})")
+    for name, t in timing["traces"].items():
+        print(f"trace {name}: {t['bytes']} bytes, {t['kernel_events']} kernel events; "
+              + ", ".join(f"{k} {n}" for k, n in t["events"].items())
+              + f"; launches {json.dumps(t['launches'])} ({card})")
+
     # launches: each path's count, read just after it ran, summed over the paths
     paths = [serve["launches"], serve286["launches"], *corpus["launches"].values(),
              head["launches_predict_clip"], head["launches_predict_batch"],
              head["stream_vote"]["launches_one_pass"], head["stream_mlp"]["launches_one_pass"],
              head["launches_http"], train["launches"], train["serve"]["launches"],
-             seq["launches"], seq["serve"]["launches"], par["launches"]]
+             seq["launches"], seq["serve"]["launches"], par["launches"], timing["launches"]]
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
     # (name, max abs error, batch-shape result, request-shape result,
     # stream-shape result); no single PyTorch call computes any of these

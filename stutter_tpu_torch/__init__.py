@@ -20,7 +20,7 @@ stage-timer modules it shares with `stutter_tpu` are its own copies.
 Public surface (lazily imported; `import stutter_tpu_torch as stt`):
 
   stt.extract_features_149_batch / extract_features_334_batch
-  stt.extract_features_numpy                                 the front end
+  stt.extract_features_numpy / extract_features_149_numpy    the front end
   stt.denoise_clips / stt.denoise_batch                      spectral gate
   stt.preprocess / stt.extract_corpus                        the corpus path
   stt.run_cv / stt.run_before_after                          training drivers
@@ -40,6 +40,7 @@ _LAZY = {
     "extract_features_334_batch": ("stutter_tpu_torch.ops.frontend334",
                                    "extract_features_334_batch"),
     "extract_features_numpy": ("stutter_tpu_torch.ops.frontend", "extract_features_numpy"),
+    "extract_features_149_numpy": ("stutter_tpu_torch.ops.frontend", "extract_features_149_numpy"),
     "denoise_clips": ("stutter_tpu_torch.denoise", "denoise_clips"),
     "denoise_batch": ("stutter_tpu_torch.denoise", "denoise_batch"),
     "preprocess": ("stutter_tpu_torch.pipeline", "preprocess"),

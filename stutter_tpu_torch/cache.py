@@ -21,10 +21,11 @@ from stutter_tpu_torch.data import cache_path
 
 
 class FeatureCache:
-    def __init__(self, cache_dir: str, feature_len: int = 149):
+    def __init__(self, cache_dir: str, feature_len: int = 149, warn_collisions: bool = True):
         self.cache_dir = cache_dir
         self.feature_len = feature_len
         self._seen_stems: dict[str, str] = {}
+        self.warn_collisions = warn_collisions
         os.makedirs(cache_dir, exist_ok=True)
 
     def path_for(self, audio_path: str, suffix: str) -> str:
@@ -47,7 +48,7 @@ class FeatureCache:
         stem = Path(audio_path).stem
         prev = self._seen_stems.get(stem)
         parent = os.path.basename(os.path.dirname(audio_path))
-        if prev is not None and prev != parent:
+        if prev is not None and prev != parent and self.warn_collisions:
             logging.warning(
                 "feature-cache stem collision: %r seen under %r and %r "
                 "(stem-keyed cache aliases across classes; ref pipeline1.py:429-440)",
@@ -76,3 +77,13 @@ class FeatureCache:
             if os.path.exists(tmp):
                 os.unlink(tmp)
         return p
+
+    def get_or_compute(self, audio_path: str, suffix: str, compute) -> np.ndarray:
+        """cached_extract semantics (ref: main.py:665-672): the cached entry
+        when there is one, else `compute()` stored and returned."""
+        cached = self.load(audio_path, suffix)
+        if cached is not None:
+            return cached
+        feats = np.asarray(compute(), np.float32)
+        self.store(audio_path, suffix, feats)
+        return feats

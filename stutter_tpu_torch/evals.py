@@ -96,6 +96,12 @@ def auc_score(y_true_bin: np.ndarray, score: np.ndarray) -> float:
     return float(np.trapezoid(tpr, fpr))
 
 
+def per_class_auc(y_true: np.ndarray, proba: np.ndarray) -> list[float]:
+    """One-vs-rest AUC per class (ref plot_roc, pipeline1.py:303-324)."""
+    n_classes = proba.shape[1]
+    return [auc_score(np.asarray(y_true) == c, proba[:, c]) for c in range(n_classes)]
+
+
 def classification_report_dict(y_true, y_pred, class_names: list[str]) -> dict:
     """sklearn classification_report(output_dict=True) equivalent."""
     n = len(class_names)

@@ -1,6 +1,6 @@
 """MP3 decoding via the system libmpg123, bound with ctypes (counterpart of
-stutter_tpu/io/mp3.py; the raw decode only, since the port resamples with
-its own resampler).
+stutter_tpu/io/mp3.py): `decode_mp3` is the raw decode, and `load_mp3`
+resamples its output with the port's resampler on a torch device.
 
 The reference ingests mp3 through librosa -> audioread/soundfile
 (ref: pipeline1.py:100-106); its corpus is 905 MPEG-2 Layer III 22.05 kHz
@@ -18,6 +18,7 @@ import ctypes
 import threading
 
 import numpy as np
+import torch
 
 # --- mpg123.h ABI constants (stable public API values) ---
 _MPG123_OK = 0
@@ -173,3 +174,17 @@ def decode_mp3(path: str) -> tuple[np.ndarray, int]:
     finally:
         lib.mpg123_delete(h)
 
+
+def load_mp3(
+    path: str, sr: int | None = None, device: torch.device | str = "cuda"
+) -> tuple[np.ndarray, int]:
+    """Decode, then resample to `sr` on `device` when it differs from the
+    file's rate (`io.decode.to_rate`): the librosa.load(path, sr=...,
+    mono=True) shape of the reference's loader (ref: pipeline1.py:100-106).
+    `sr=None` keeps the file's rate."""
+    from stutter_tpu_torch.io.decode import to_rate
+
+    y, native_sr = decode_mp3(path)
+    if sr is None:
+        return y, native_sr
+    return np.asarray(to_rate(y, native_sr, sr, device), np.float32), sr

@@ -78,6 +78,11 @@ def _build_and_load() -> ctypes.CDLL | None:
     return lib
 
 
+def native_available() -> bool:
+    """True when the C++ loader builds and loads on this host."""
+    return _build_and_load() is not None
+
+
 def load_wav_batch(
     paths: list[str],
     n_samples_max: int,

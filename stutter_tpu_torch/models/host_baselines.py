@@ -74,3 +74,8 @@ def reference_model_zoo(variant: str = "main", seed: int = 42) -> dict:
         ]
     )
     return base
+
+
+def feature_importances_rf(rf) -> np.ndarray:
+    """RF built-in importances passthrough (ref: pipeline1.py:609)."""
+    return np.asarray(rf.feature_importances_)

@@ -38,6 +38,9 @@ class StandardScaler:
     def transform(self, X):
         return (X - self.mean_) / self.scale_
 
+    def inverse_transform(self, X):
+        return X * self.scale_ + self.mean_
+
     @property
     def n_features_in_(self) -> int:
         return int(self.mean_.shape[0])
@@ -70,3 +73,14 @@ class LabelEncoder:
     def transform(self, labels: list[str]) -> np.ndarray:
         index = {c: i for i, c in enumerate(self.classes_)}
         return np.array([index[l] for l in labels], dtype=np.int32)
+
+    def fit_transform(self, labels: list[str]) -> np.ndarray:
+        self.classes_ = sorted(set(labels))
+        return self.transform(labels)
+
+    def inverse_transform(self, y) -> list[str]:
+        return [self.classes_[int(i)] for i in np.atleast_1d(np.asarray(y))]
+
+    @property
+    def n_classes(self) -> int:
+        return len(self.classes_)

@@ -16,9 +16,12 @@ mel-output mode.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from stutter_tpu_torch.config import FEATURES_149
 from stutter_tpu_torch.ops.chroma_stats import chroma_stats
 from stutter_tpu_torch.ops.masked import frame_mask, masked_mean_std
 from stutter_tpu_torch.ops.spectral import db_from_mel
@@ -167,3 +170,18 @@ def extract_features_numpy(
     mesh (run_bucketed)."""
     return run_bucketed(clips, batch_extractor_for(feature_cfg), feature_cfg.total_feature_len,
                         buckets, batch_size, device, mesh)
+
+
+def extract_features_149_numpy(
+    clips: list[np.ndarray],
+    sr: int = 16000,
+    buckets=DEFAULT_BUCKETS,
+    batch_size: int = 256,
+    device: torch.device | str = "cuda",
+    mesh=None,
+) -> np.ndarray:
+    """The JAX package's name and signature: clips -> [n, 149] features in
+    input order (extract_features_numpy with FEATURES_149 at rate `sr`)."""
+    cfg = dataclasses.replace(
+        FEATURES_149, frontend=dataclasses.replace(FEATURES_149.frontend, sample_rate=sr))
+    return extract_features_numpy(clips, cfg, buckets, batch_size, device, mesh)

@@ -118,20 +118,32 @@ def build_variants(build_dir: Path) -> dict:
         return dict(pool.map(build, jobs))
 
 
-def kernel_times(run, reps: int = 10) -> dict:
-    """Device ms per call of each kernel that `run` launches."""
+def kernel_times(run, reps: int = 10, attempts: int = 3) -> dict:
+    """Device ms per call of each kernel that `run` launches, from a
+    profile_window that holds a kernel for every launch (retaken up to
+    `attempts` times, then TraceIncomplete)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
+
+    from stutter_tpu_torch.utils.profiling import (
+        BURST_KERNEL, WINDOW_BURST, TraceIncomplete, check_complete, profile_window)
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
+    for attempt in range(attempts):
+        with profile_window([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        try:
+            check_complete(prof.events(), "kernel_times' profile", WINDOW_BURST)
+            break
+        except TraceIncomplete:
+            if attempt == attempts - 1:
+                raise
     out = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and BURST_KERNEL not in e.name:
             name = e.name.replace("(anonymous namespace)::", "").split("(")[0].split(" ")[-1]
             out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
     return out

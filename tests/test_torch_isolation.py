@@ -5,7 +5,10 @@ evals' metrics and CSV writers, report, train.splits with and without
 sklearn, models.host_baselines, io.wav, io.mp3, the decoder registry, the
 C++ WAV loader, ops.filterbanks, utils.profiling, serve's upload sniffing
 and cap, persist's parameter flattening and sklearn helpers) gives what the
-original gives."""
+original gives; so do the public functions the port adds to its copies
+(FeatureCache.get_or_compute and its collision gate, per_class_auc,
+feature_importances_rf, the scaler's and encoder's inverses, load_mp3,
+native_available, extract_features_149_numpy)."""
 
 import ast
 import dataclasses
@@ -502,3 +505,137 @@ def test_seq_training_config_and_recipes_equal_the_jax_package():
             **dataclasses.asdict(JP.default_train_cfg(arch, 7)))
         assert P.ARCHS[arch]["kind"] == JP.ARCHS[arch]["kind"]
         assert P.ARCHS[arch]["init_kwargs"](5) == JP.ARCHS[arch]["init_kwargs"](5)
+
+
+def test_get_or_compute_caches_like_the_jax_package(tmp_path):
+    """Computes once, loads on the second call; the .npy bytes equal the
+    JAX FeatureCache's for the same path and suffix."""
+    from stutter_tpu import cache as jcache
+    from stutter_tpu_torch import cache
+
+    audio = "/corpus/segrigated_samples/block/clip_0007.mp3"
+    v = np.random.RandomState(8).randn(149)  # float64: stored as float32
+    files = {}
+    for name, mod in (("ours", cache), ("theirs", jcache)):
+        c = mod.FeatureCache(str(tmp_path / name))
+        calls = []
+        first = c.get_or_compute(audio, "raw", lambda: calls.append(1) or v)
+        second = c.get_or_compute(audio, "raw", lambda: calls.append(1) or v + 1)
+        assert len(calls) == 1 and first.dtype == np.float32
+        np.testing.assert_array_equal(first, v.astype(np.float32))
+        np.testing.assert_array_equal(second, first)
+        files[name] = (tmp_path / name / os.path.basename(c.path_for(audio, "raw"))).read_bytes()
+    assert files["ours"] == files["theirs"]
+
+
+@pytest.mark.parametrize("warn", [True, False])
+def test_collision_warning_gate_equals_the_jax_package(tmp_path, caplog, warn):
+    from stutter_tpu import cache as jcache
+    from stutter_tpu_torch import cache
+
+    v = np.zeros(149, np.float32)
+    for name, mod in (("ours", cache), ("theirs", jcache)):
+        c = mod.FeatureCache(str(tmp_path / name), warn_collisions=warn)
+        caplog.clear()
+        c.store("/c/block/x.wav", "raw", v)
+        c.store("/c/fluent/x.wav", "raw", v)
+        hits = [r for r in caplog.records if "stem collision" in r.getMessage()]
+        assert len(hits) == (1 if warn else 0), name
+
+
+def test_per_class_auc_equals_the_jax_package():
+    from stutter_tpu import evals as J
+    from stutter_tpu_torch import evals as P
+
+    rng = np.random.RandomState(9)
+    y = rng.randint(0, 4, 300)
+    proba = rng.dirichlet(np.ones(4), 300)
+    proba[np.arange(300), y] += 0.2 * rng.rand(300)
+    ours, theirs = P.per_class_auc(y, proba), J.per_class_auc(y, proba)
+    assert len(ours) == len(theirs) == 4
+    np.testing.assert_allclose(ours, theirs, rtol=0, atol=1e-12)
+
+
+def test_feature_importances_rf_passes_through_like_the_jax_package():
+    from stutter_tpu.models import host_baselines as J
+    from stutter_tpu_torch.models import host_baselines as P
+
+    class Fitted:
+        feature_importances_ = list(np.random.RandomState(10).dirichlet(np.ones(149)))
+
+    ours, theirs = P.feature_importances_rf(Fitted()), J.feature_importances_rf(Fitted())
+    assert isinstance(ours, np.ndarray) and ours.shape == (149,)
+    np.testing.assert_array_equal(ours, theirs)
+
+
+def test_scaler_and_label_encoder_inverses_equal_the_jax_package():
+    from stutter_tpu.models import scaler as J
+    from stutter_tpu_torch.models import scaler as P
+
+    rng = np.random.RandomState(11)
+    X = (rng.randn(40, 149) * 3 + 1).astype(np.float32)
+    X[:, 5] = 2.0  # a constant column: scale 1
+    ours, theirs = P.StandardScaler.fit(X), J.StandardScaler.fit(X)
+    Z = ours.transform(X)
+    back = ours.inverse_transform(Z)
+    np.testing.assert_allclose(back, np.asarray(theirs.inverse_transform(theirs.transform(X))),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(back, X, rtol=0, atol=1e-5)
+    labels = ["word repetition", "block", "fluent", "block", "prolongation"]
+    ole, jle = P.LabelEncoder(classes_=[]), J.LabelEncoder(classes_=[])
+    y, jy = ole.fit_transform(labels), jle.fit_transform(labels)
+    np.testing.assert_array_equal(y, jy)
+    assert ole.classes_ == jle.classes_ and ole.n_classes == jle.n_classes == 4
+    assert ole.inverse_transform(y) == jle.inverse_transform(jy) == labels
+    assert ole.inverse_transform(2) == jle.inverse_transform(2) == ["prolongation"]
+
+
+def test_load_mp3_resamples_like_the_jax_package(monkeypatch):
+    """Both packages' decode_mp3 patched to the same 22.05 kHz signal:
+    load_mp3 at 16 kHz agrees within the resampler's bound (1e-5), and at
+    its own rate returns the decode unchanged."""
+    from stutter_tpu.io import mp3 as jmp3
+    from stutter_tpu_torch.io import mp3
+
+    rng = np.random.RandomState(12)
+    t = np.arange(22050 * 2) / 22050
+    y = (0.4 * np.sin(2 * np.pi * 440 * t) + 0.05 * rng.randn(t.size)).astype(np.float32)
+    for mod in (mp3, jmp3):
+        monkeypatch.setattr(mod, "decode_mp3", lambda path: (y, 22050))
+    ours, sr = mp3.load_mp3("clip.mp3", 16000, device="cpu")
+    theirs, jsr = jmp3.load_mp3("clip.mp3", 16000)
+    assert sr == jsr == 16000 and ours.dtype == np.float32 and ours.shape == theirs.shape
+    np.testing.assert_allclose(ours, theirs, rtol=0, atol=1e-5)
+    for rate in (None, 22050):
+        same, native = mp3.load_mp3("clip.mp3", rate, device="cpu")
+        assert native == 22050
+        np.testing.assert_array_equal(same, y)
+
+
+def test_native_available_equals_the_jax_package():
+    from stutter_tpu.io import native as J
+    from stutter_tpu_torch.io import native as P
+
+    assert isinstance(P.native_available(), bool)
+    assert P.native_available() == J.native_available()
+
+
+def test_extract_features_149_numpy_equals_the_jax_package():
+    """The JAX name and signature, in input order over two buckets: the MFCC
+    block within 2e-3, chroma within 1e-5 (the bounds of
+    test_torch_slice.py), the text block zero."""
+    import stutter_tpu
+    import stutter_tpu_torch
+
+    rng = np.random.RandomState(13)
+    t = np.arange(40000) / 16000
+    clips = [(0.5 * np.sin(2 * np.pi * 330 * t[:24000]) + 0.03 * rng.randn(24000)),
+             0.3 * rng.randn(40000),
+             0.4 * np.sin(2 * np.pi * 612.5 * t[:9000]) + 0.05 * rng.randn(9000)]
+    clips = [c.astype(np.float32) for c in clips]
+    ours = stutter_tpu_torch.extract_features_149_numpy(clips, 16000, batch_size=2, device="cpu")
+    theirs = stutter_tpu.extract_features_149_numpy(clips, 16000, batch_size=2)
+    assert ours.shape == theirs.shape == (3, 149)
+    assert np.abs(ours[:, :120] - theirs[:, :120]).max() < 2e-3
+    assert np.abs(ours[:, 120:144] - theirs[:, 120:144]).max() < 1e-5
+    assert (ours[:, 144:] == 0).all()
