@@ -14,7 +14,10 @@
    kernel's device time per call comes from torch.profiler too; spectromel's
    tuning tail is timed on its own that way, beside its bound (the
    compacted candidates and frame counts read once, a bin written per
-   clip).  A 10 s clip whose candidates overflow the tail's shared memory
+   clip), and so is its stats launch (launch 2: the valid dB mel rows read
+   once and the stats written, against the DCT's FP32 operations), at
+   B=256 x 3 s, the MLP stream's [64, 48128], one 3 s request and the 10 s
+   bucket; two launches on the same input give bitwise-equal stats.  A 10 s clip whose candidates overflow the tail's shared memory
    (a comb of tones at every other FFT bin) checks the tail's
    over-capacity path.
 3. Serving, 149-dim: writes full-width artifacts from a numpy seed
@@ -276,6 +279,18 @@ def tail_numbers(p, n_fft: int) -> dict:
             "plain_ms": time_ms(lambda: tuning_bin_from_compacted(keys, bins, counts))}
 
 
+def stats_launch_numbers(dev_ms: dict, B: int, T: int, length: int) -> dict:
+    """Spectromel's stats launch (launch 2) on its own: its device time from
+    the wrapper's profile, its plan, and its least time -- the valid dB mel
+    rows read once and the stats written once, against the DCT's FP32
+    operations (2 x 128 x 20 a valid frame)."""
+    from stutter_tpu_torch.ops.spectromel import stats_plan
+
+    nv = min(1 + length // 512, T)
+    return {"ms": dev_ms["spectromel_stats"], "plan": stats_plan(B, T)._asdict(),
+            **bound(4 * (B * nv * 128 + B * 6 * 20), B * nv * 2 * 128 * 20)}
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -349,11 +364,15 @@ def compare_spectromel(rng, dev, B: int, N: int, length: int, timed: bool):
     # power, stats and tuning bin out; FFT, |.|^2, the sparse mel and the DCT
     res.update(bound(4 * (B * N + B + B * T * K + B * 6 * 20 + B),
                      fft_flops(B * T, 2048) + B * T * (3 * K + 2 * mel_nonzeros(2048) + 2 * 128 * 20)))
+    # two launches on the same input give the same stats, bit for bit
+    res["stats_bitwise_repeatable"] = bool(torch.equal(spectromel(audio, lengths)[1], st))
+    check(res["stats_bitwise_repeatable"], "spectromel stats differ between two launches")
     if timed:
         res["ms"] = time_ms(lambda: spectromel(audio, lengths))
         res["plain_ms"] = time_ms(lambda: spectromel_plain(audio, lengths))
         res["device_ms"] = device_ms(lambda: spectromel(audio, lengths))
         res["tail"] = {"ms": res["device_ms"]["tuning_tail"], **tail_numbers(p, 2048)}
+        res["stats_launch"] = stats_launch_numbers(res["device_ms"], B, T, length)
         framed = frame(audio, 2048, 512) * hann(2048, dev)
         res["stft_library_ms"] = stft_library_ms(framed)
         del framed
@@ -1831,6 +1850,10 @@ def main() -> int:
     for name, res in (("3s", sm), ("10s", sm10), ("request", sm1), ("mel 3s", mel),
                       ("mel 10s", mel10), ("mel request", mel1), ("stream windows", sm_win)):
         print(f"tuning_tail {name} B={res['B']}: {json.dumps(res['tail'])} ({card})")
+    for name, res in (("3s", sm), ("stream windows", sm_win), ("request", sm1), ("10s", sm10)):
+        st = res["stats_launch"]
+        print(f"spectromel_stats {name} B={res['B']} N={res['N']}: {st['ms']:.4f} ms of device "
+              f"time, bound {st['bound_ms']:.5f} ms ({st['bound_by']}), plan {st['plan']} ({card})")
 
     with tempfile.TemporaryDirectory() as out_dir:  # phase 3: serving, 149-dim
         cfg149 = PipelineConfig()
@@ -1980,7 +2003,12 @@ def main() -> int:
                 # spectromel's launch 3, the counterpart of the XLA
                 # tuning_bin_from_candidates (stutter_tpu/ops/chroma.py:213)
                 **({f"{pre}tuning_tail_{k}": t["tail"][k] for pre, t in (("", r), ("request_", q))
-                    for k in ("ms", "plain_ms", "bound_ms")} if "tail" in r else {})}
+                    for k in ("ms", "plain_ms", "bound_ms")} if "tail" in r else {}),
+                # spectromel's launch 2, the body _mfcc_stats_of
+                # (stutter_tpu/ops/pallas_spectromel.py:300): profiler time
+                **({f"{pre}stats_launch_{k}": t["stats_launch"][k]
+                    for pre, t in (("", r), ("request_", q), ("stream_", w))
+                    for k in ("ms", "bound_ms")} if "stats_launch" in r else {})}
                for n, err, r, q, w in rows]
     check(all(k["launches"] > 0 for k in kernels), f"a kernel never launched: {launches}")
     print(json.dumps({"kernels": kernels}))

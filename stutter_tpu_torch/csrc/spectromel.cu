@@ -36,11 +36,55 @@
 //     magnitude (`ordered_key`) and the histogram bin as one byte -- and
 //     n_t goes to counts [B, T].  The layout is deterministic; the tail's
 //     result would be exact in any slot order, since it counts integers.
-//  2. spectromel_stats (stats mode only), one block per clip: librosa
-//     power_to_db's 80 dB clamp under the max over valid frames, the
-//     orthonormal DCT-II, SavGol delta and delta-delta (width 9; interior
-//     taps, static first edge, last edge at the clip's own n_valid), and the
-//     masked mean and population std -> stats [B, 6, n_mfcc].
+//  2. spectromel_stats (stats mode only), the body _mfcc_stats_of
+//     (stutter_tpu/ops/pallas_spectromel.py:300): librosa power_to_db's 80 dB
+//     clamp under the max over valid frames, the orthonormal DCT-II, SavGol
+//     delta and delta-delta (width 9; interior taps, static first edge, last
+//     edge at the clip's own n_valid), and the masked mean and population
+//     std -> stats [B, 6, n_mfcc].  It reads the dB mel launch 1 wrote, and
+//     only the frames it needs: the valid ones and, for a clip of fewer than
+//     9, the masked frames up to 9 that its last-edge rows read.  Bound on
+//     an H100 by those bytes (12.3 MB at B=256 x 3 s, 3.7 us at 3.35 TB/s;
+//     the DCT's 123 MFLOP take 1.8 us at the FP32 rate), and at one request
+//     by its latency: a chain of copies, barriers and short loops.  The
+//     design:
+//      * a thread-block cluster of cs <= 8 blocks per clip (portable), each
+//        block owning a contiguous range of R valid frames
+//        (ops/spectromel.py:stats_plan picks cs and R from B and T: one 3 s
+//        request spreads over 8 SMs, a batch of 256 takes a block a clip),
+//        so shared memory bounds a block's frames, not the clip's;
+//      * a block's mel rows land in shared memory by bulk copies
+//        (cp.async.bulk, one a row, into rows padded by 16 bytes) on one
+//        mbarrier, with the DCT table: its own frames and the rows its
+//        deltas read, 8 before (the interior's halo of 4, and a last-edge
+//        window that starts up to 8 frames back) and 4 after.  Rows past
+//        the clip's last needed frame are never read; a halo row is read by
+//        two blocks, the second time from L2 in practice (the neighbour
+//        reads it at the same moment), and costs a batch of 256 nothing
+//        (a block a clip);
+//      * the floor is the max of the warps' maxima, which every warp writes
+//        to every block of the cluster through distributed shared memory
+//        before one cluster.sync();
+//      * the DCT is an FP32 product from shared memory, tiled for the CUDA
+//        cores: a lane holds 2 frames x 5 coefficients in registers, and
+//        each 16-byte read feeds the 4 or 8 lanes that share it from banks
+//        no other read of the instruction uses.  Each coefficient sums its
+//        bands in order, one FMA a band, the clamp applied as the operand
+//        is read (no TF32, no bf16: ROADMAP's FP32 parity);
+//      * the deltas read the block's own MFCC of those rows: the halo is
+//        recomputed (12 rows of DCT a block), not fetched from the
+//        neighbours, which would put another cluster barrier and a gather
+//        from distributed shared memory on a request's chain;
+//      * the cluster's warps share the 3C columns; a warp forms a column's
+//        mean and centred population std, reading the values of frames
+//        other blocks own through distributed shared memory (one more
+//        cluster.sync() before, one after).  Every sum runs in the order of
+//        the one-block kernel this launch replaced (the DCT band by band;
+//        per column, lane l over frames l, l + 32, ..., then the warp's xor
+//        tree), so the stats are bit for bit that kernel's at any cluster
+//        size: a redesign for speed changes no feature, cache or trained
+//        model downstream.  No float atomics: two launches give the same
+//        bits.
 //  3. tuning_tail, one block of 512 threads per clip: the tuning bin from
 //     the compacted candidates, as ops/chroma.py:tuning_bin_from_candidates
 //     (XLA in the JAX package, stutter_tpu/ops/chroma.py:213) computes it --
@@ -70,20 +114,24 @@
 // n_fft / hop times) and writes power, mel and the compacted candidates;
 // its FFTs are ~5 n log2 n / 2 FLOP a frame, far below the FP32 rate, so
 // the launch is bound by those bytes.  A clip's power (97 x 1025 f32 at
-// 3 s) does not fit one SM's shared memory, hence frame tiles, the mel
-// written for launch 2, and the per-clip stats launch.  The tail is bound
-// by its reads (the counts and 5 bytes a candidate) and, at a request, by
-// its latency: one block per clip, a handful of block-wide barriers a pass.
+// 3 s) does not fit one SM's shared memory, hence frame tiles and the mel
+// written for launch 2.  The tail is bound by its reads (the counts and 5
+// bytes a candidate) and, at a request, by its latency: one block per clip,
+// a handful of block-wide barriers a pass.
 //
 // The candidate arithmetic uses __f*_rn intrinsics, which the compiler never
 // fuses into FMAs: every operation rounds as the plain PyTorch version's
 // separate elementwise ops do, so the tuning bin computed from the kernel's
 // own power matches the plain estimate on that power exactly.
+#include <cooperative_groups.h>
+#include <stdint.h>
+
 #include <algorithm>
 
 #include "rfft_smem.cuh"
 
 using namespace rfft;
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -221,93 +269,294 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-__device__ inline float block_max(float v, float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-  v = warp_max(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < nwarps ? red[lane] : -INFINITY;
-    v = warp_max(v);
-    if (lane == 0) red[0] = v;
-  }
-  __syncthreads();
-  v = red[0];
-  __syncthreads();
-  return v;
+constexpr int STATS_THREADS = 256;
+constexpr int STATS_WARPS = STATS_THREADS / 32;
+constexpr int MAX_CLUSTER = 8;  // a portable cluster
+constexpr int HALO_BEFORE = 2 * HALF;  // rows before a block's frames its deltas read
+constexpr int CHUNK = 20;       // coefficients a warp's DCT tile spans: 4 lanes x 5
+constexpr int STATS_COLS = 4;   // columns a warp forms at once for the statistics
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// Shared memory of a stats block that owns R frames, as float offsets
+// (ops/spectromel.py:stats_smem_bytes mirrors it): 4 floats for the
+// mbarrier; every warp's max of every rank [MAX_CLUSTER, 8]; the dB mel rows
+// the block transforms [R + 12, M + 4] (its frames, 8 before and 4 after:
+// each row padded by 16 bytes, so the rows a read instruction touches sit in
+// different banks; after the DCT the same bytes hold the deltas [2, R, C]);
+// the DCT table [CC, M + 4] (coefficient-major, CC = C rounded up to 20, zero
+// past C, rows padded like the mel's); those rows' MFCC [R + 12, C].
+struct StatsLayout {
+  int wmax, rows, dct, mf, total;
+};
+
+__host__ __device__ inline StatsLayout stats_layout(int R, int M, int C) {
+  const int W = R + 3 * HALF, CC = (C + CHUNK - 1) / CHUNK * CHUNK;
+  StatsLayout L;
+  L.wmax = 4;
+  L.rows = L.wmax + MAX_CLUSTER * STATS_WARPS;
+  L.dct = L.rows + round4(W * (M + 4) > 2 * R * C ? W * (M + 4) : 2 * R * C);
+  L.mf = L.dct + CC * (M + 4);
+  L.total = L.mf + round4(W * C);
+  return L;
 }
 
-__global__ void spectromel_stats(const float* __restrict__ mel, const int* __restrict__ lengths,
-                                 int T, int M, int hop, const float* __restrict__ dctT, int C,
-                                 const float* __restrict__ sg, float* __restrict__ stats) {
+__device__ inline uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ inline void mbar_wait(uint32_t bar, uint32_t phase) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(phase) : "memory");
+  } while (!done);
+}
+
+__device__ inline void bulk_copy(void* dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// The two halves of cluster.sync(): a block arrives as it starts and waits
+// just before its first write to another block's shared memory, which is
+// safe once every block of the cluster has started.
+__device__ inline void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ inline void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ inline float4 clamp4(float4 a, float lo) {
+  return make_float4(fmaxf(a.x, lo), fmaxf(a.y, lo), fmaxf(a.z, lo), fmaxf(a.w, lo));
+}
+
+// The MFCC [n, C] of n dB mel rows (stride S), clamped at floor_db as they
+// are read, against the DCT [CC, S], tiled for the CUDA cores: a warp forms
+// 16 frames x 20 coefficients at a time, lane (rl, cg) frames rl and rl + 8
+// of the tile x coefficients 5 cg .. 5 cg + 4 in registers.  A 16-byte
+// read of 4 bands feeds the 4 lanes of a mel row or the 8 lanes of a DCT
+// row, and the 8 mel rows or 4 DCT rows a read instruction touches sit in
+// different banks (rows 33 float4s apart).  Each coefficient sums over the
+// bands in order from 0, one FMA a band: the one-block kernel's order, so
+// the MFCC keeps its bits.
+__device__ inline void dct_tiles(const float* rows, const float* dctp, int S, int M, int C,
+                                 int n, float floor_db, float* mf) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, rl = lane >> 2, cg = lane & 3;
+  const int tiles = (n + 15) / 16, chunks = (C + CHUNK - 1) / CHUNK;
+  for (int item = warp; item < tiles * chunks; item += STATS_WARPS) {
+    const int t0 = item / chunks * 16, c0 = (item % chunks) * CHUNK + 5 * cg;
+    const int r0 = t0 + rl, r1 = r0 + 8;
+    const float* x0 = rows + min(r0, n - 1) * S;
+    const float* x1 = rows + min(r1, n - 1) * S;
+    const float* w = dctp + c0 * S;
+    float acc0[5], acc1[5];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) acc0[i] = acc1[i] = 0.f;
+#pragma unroll 2
+    for (int j = 0; j < M; j += 4) {
+      const float4 a0 = clamp4(*reinterpret_cast<const float4*>(x0 + j), floor_db);
+      const float4 a1 = clamp4(*reinterpret_cast<const float4*>(x1 + j), floor_db);
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        const float4 d = *reinterpret_cast<const float4*>(w + i * S + j);
+        acc0[i] = fmaf(a0.w, d.w, fmaf(a0.z, d.z, fmaf(a0.y, d.y, fmaf(a0.x, d.x, acc0[i]))));
+        acc1[i] = fmaf(a1.w, d.w, fmaf(a1.z, d.z, fmaf(a1.y, d.y, fmaf(a1.x, d.x, acc1[i]))));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 5; ++i)
+      if (c0 + i < C) {
+        if (r0 < n) mf[r0 * C + c0 + i] = acc0[i];
+        if (r1 < n) mf[r1 * C + c0 + i] = acc1[i];
+      }
+  }
+}
+
+// Valid frame t's MFCC row (pm) and delta row (pd; the delta-delta's is R C
+// further) in the block of the cluster that owns t: its MFCC window starts
+// at lo_q = max(0, q R - 8), its deltas at q R.
+__device__ inline void stats_rows(cg::cluster_group& cluster, const float* mf, const float* rows,
+                                  int R, int C, int t, const float*& pm, const float*& pd) {
+  const int q = t / R;
+  pm = mf + (t - max(0, q * R - HALO_BEFORE)) * C;
+  pd = rows + (t - q * R) * C;
+  if (q != (int)cluster.block_rank()) {
+    pm = cluster.map_shared_rank(pm, q);
+    pd = cluster.map_shared_rank(pd, q);
+  }
+}
+
+// grid (cs, B), cluster (cs, 1, 1): blockIdx.y is the clip.  Block rank q
+// owns frames [f0, f0 + R), f0 = q R, of the clip's valid ones and forms
+// their deltas and partial sums.  It transforms the rows [lo, hi) those
+// deltas read -- its valid frames, the 8 before (the interior's halo of 4,
+// and a last-edge window that starts up to 8 frames back) and the 4 after,
+// rows 0-8 for the first edge, and for a clip of fewer than 9 frames the
+// masked frames up to 9 (their dB mel: -100 before the clamp).
+__global__ void __launch_bounds__(STATS_THREADS)
+    spectromel_stats(const float* __restrict__ mel, const int* __restrict__ lengths, int T,
+                     int M, int hop, const float* __restrict__ dct, int C, int R,
+                     const float* __restrict__ sg, float* __restrict__ stats) {
   extern __shared__ __align__(16) float smem[];
-  float* mf = smem;         // [T * C] MFCC
-  float* d1 = mf + T * C;   // [T * C] delta
-  float* d2 = d1 + T * C;   // [T * C] delta-delta
-  __shared__ float red[32];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  cluster_arrive_relaxed();  // this block has started
+  const StatsLayout L = stats_layout(R, M, C);
+  const int S = M + 4, NC = 3 * C, CC = (C + CHUNK - 1) / CHUNK * CHUNK;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  float* wmax = smem + L.wmax;  // [rank, warp] maxima
+  float* rows = smem + L.rows;  // [hi - lo, S] dB mel; after the DCT d1, d2 [R, C]
+  float* dcts = smem + L.dct;   // [CC, S]
+  float* mf = smem + L.mf;      // [hi - lo, C]
 
-  const int b = blockIdx.x;
+  const int b = blockIdx.y, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nv = min(1 + lengths[b] / hop, T);
-  const float* X = mel + (size_t)b * T * M;
+  const int need = min(max(nv, WIDTH), T);
+  const int f0 = rank * R;
+  const int nvr = max(0, min(R, nv - f0));  // this block's valid frames
+  const int lo = max(0, f0 - HALO_BEFORE);
+  const int hi = nvr > 0 ? min(need, max(f0 + nvr + HALF, WIDTH)) : lo;
+  const uint32_t bar_a = smem_addr(bar);
 
+  // the rows [lo, hi) and the DCT table, bulk copies on one mbarrier
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar_a) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int nld = hi - lo;  // rows this block transforms
+  if (warp == 0) {
+    const int ncopy = nld;  // rows it copies from device memory
+    const uint32_t dct_bytes = (uint32_t)(CC * S * sizeof(float));
+    const uint32_t row_bytes = (uint32_t)(M * sizeof(float));
+    if (lane == 0) {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                   :: "r"(bar_a), "r"(dct_bytes + ncopy * row_bytes) : "memory");
+      bulk_copy(dcts, dct, dct_bytes, bar_a);
+    }
+    __syncwarp();
+    const float* src = mel + ((size_t)b * T + lo) * M;
+    for (int r = lane; r < ncopy; r += 32)
+      bulk_copy(rows + r * S, src + (size_t)r * M, row_bytes, bar_a);
+  }
+  mbar_wait(bar_a, 0);
+
+  // librosa's 80 dB floor under the clip's max over valid frames: each
+  // warp's max over the block's own valid frames, written to every block of
+  // the cluster through distributed shared memory
   float m = -INFINITY;
-  for (int i = threadIdx.x; i < nv * M; i += blockDim.x) m = fmaxf(m, X[i]);
-  const float floor_db = block_max(m, red) - 80.0f;
+  for (int r = warp; r < nvr; r += STATS_WARPS)
+    for (int k = 4 * lane; k < M; k += 128) {
+      const float4 v = *reinterpret_cast<const float4*>(rows + (f0 - lo + r) * S + k);
+      m = fmaxf(m, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
+    }
+  m = warp_max(m);
+  cluster_wait();  // every block has started
+  if (lane < cs) cluster.map_shared_rank(wmax, lane)[rank * STATS_WARPS + warp] = m;
+  cluster.sync();  // every warp's max is in every block
+  float top = -INFINITY;  // every warp reduces the cs x 8 maxima, two a lane
+  for (int i = lane; i < cs * STATS_WARPS; i += 32) top = fmaxf(top, wmax[i]);
+  const float floor_db = warp_max(top) - 80.0f;
 
-  for (int i = threadIdx.x; i < T * C; i += blockDim.x) {
-    const int t = i / C, c = i - t * C;
-    const float* row = X + (size_t)t * M;
-    float acc = 0.f;
-    for (int j = 0; j < M; ++j) acc += fmaxf(row[j], floor_db) * dctT[j * C + c];
-    mf[i] = acc;
+  // the DCT-II of the rows [lo, hi) from shared memory
+  dct_tiles(rows, dcts, S, M, C, nld, floor_db, mf);
+  __syncthreads();  // the MFCC is in; the mel rows are free
+
+  // SavGol delta and delta-delta of the block's valid frames: 9 taps over
+  // 9 consecutive MFCC rows -- the interior centred on t, the first edge
+  // rows 0-8, the last edge the clip's own last 9; the interior taps in
+  // registers, the edge rows' from the table
+  float* d1 = rows;
+  float* d2 = d1 + R * C;
+  const int start = max(nv - WIDTH, 0);
+  float i1[WIDTH], i2[WIDTH];
+#pragma unroll
+  for (int w = 0; w < WIDTH; ++w) {
+    i1[w] = __ldg(sg + w);
+    i2[w] = __ldg(sg + SG_ROWS * WIDTH + w);
+  }
+  for (int i = tid; i < nvr * C; i += STATS_THREADS) {
+    const int r = i / C, c = i - r * C, t = f0 + r;
+    const int e = t - (nv - HALF);
+    float a1 = 0.f, a2 = 0.f;
+    if ((e >= 0 && e < HALF) || t < HALF) {  // an edge row
+      const bool last = e >= 0 && e < HALF;  // last edge, at this clip's own n_valid
+      const int row = last ? 1 + HALF + e : 1 + t;
+      const float* v = mf + ((last ? start : 0) - lo) * C + c;
+      const float* k1 = sg + row * WIDTH;
+      const float* k2 = sg + (SG_ROWS + row) * WIDTH;
+#pragma unroll
+      for (int w = 0; w < WIDTH; ++w) {
+        a1 = fmaf(__ldg(k1 + w), v[w * C], a1);
+        a2 = fmaf(__ldg(k2 + w), v[w * C], a2);
+      }
+    } else {  // interior
+      const float* v = mf + (t - HALF - lo) * C + c;
+#pragma unroll
+      for (int w = 0; w < WIDTH; ++w) {
+        a1 = fmaf(i1[w], v[w * C], a1);
+        a2 = fmaf(i2[w], v[w * C], a2);
+      }
+    }
+    d1[i] = a1;
+    d2[i] = a2;
   }
   __syncthreads();
 
-  const int start = max(nv - WIDTH, 0);
-  for (int i = threadIdx.x; i < nv * C; i += blockDim.x) {
-    const int t = i / C, c = i - t * C;
-    const int e = t - (nv - HALF);
+  cluster.sync();  // every block's MFCC and deltas are in
+
+  // masked mean and population std, centred on the mean, in the one-block
+  // kernel's order, so the stats keep their bits: a warp a column (the
+  // cluster's warps share the 3C columns, STATS_COLS at a time so that
+  // their reads and trees overlap), lane l summing frames l, l + 32, ... in
+  // order -- each read from the block that owns it, through distributed
+  // shared memory for a neighbour's -- then the warp's xor tree
+  const float cnt = (float)max(nv, 1);
+  const int nw = cs * STATS_WARPS, gw = rank * STATS_WARPS + warp;
+  for (int col0 = gw; col0 < NC; col0 += STATS_COLS * nw) {
+    float s[STATS_COLS], mean[STATS_COLS], v[STATS_COLS];
 #pragma unroll
-    for (int o = 0; o < 2; ++o) {
-      const float* taps = sg + o * SG_ROWS * WIDTH;
-      float acc = 0.f;
-      if (e >= 0 && e < HALF) {  // last edge, at this clip's own n_valid
-        const float* row = taps + (1 + HALF + e) * WIDTH;
-        for (int w = 0; w < WIDTH; ++w) acc += row[w] * mf[(start + w) * C + c];
-      } else if (t < HALF) {  // first edge
-        const float* row = taps + (1 + t) * WIDTH;
-        for (int w = 0; w < WIDTH; ++w) acc += row[w] * mf[w * C + c];
-      } else {  // interior; zero beyond the bucket's last frame
-        for (int j = 0; j < WIDTH; ++j) {
-          const int src = t + j - HALF;
-          if (src < T) acc += taps[j] * mf[src * C + c];
+    for (int i = 0; i < STATS_COLS; ++i) s[i] = v[i] = 0.f;
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int t = lane; t < nv; t += 32) {
+        const float *pm, *pd;  // frame t's MFCC and delta rows, in the block that owns it
+        stats_rows(cluster, mf, rows, R, C, t, pm, pd);
+#pragma unroll
+        for (int i = 0; i < STATS_COLS; ++i) {
+          const int col = col0 + i * nw, k = col / C, c = col - k * C;
+          if (col < NC) {
+            const float x = k == 0 ? pm[c] : pd[(k - 1) * R * C + c];
+            if (pass == 0) {
+              s[i] += x;
+            } else {
+              const float d = x - mean[i];
+              v[i] = fmaf(d, d, v[i]);
+            }
+          }
         }
       }
-      (o == 0 ? d1 : d2)[i] = acc;
+#pragma unroll
+      for (int i = 0; i < STATS_COLS; ++i)
+        if (pass == 0) mean[i] = warp_sum(s[i]) / cnt;
+    }
+#pragma unroll
+    for (int i = 0; i < STATS_COLS; ++i) {
+      const int col = col0 + i * nw, k = col / C, c = col - k * C;
+      const float stdv = sqrtf(warp_sum(v[i]) / cnt);
+      if (lane == 0 && col < NC) {
+        float* out = stats + ((size_t)b * 6 + 2 * k) * C + c;
+        out[0] = mean[i];
+        out[C] = stdv;
+      }
     }
   }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-  const float cnt = (float)max(nv, 1);
-  for (int col = warp; col < 3 * C; col += nwarps) {
-    const float* x = smem + (col / C) * T * C;
-    const int c = col % C;
-    float s = 0.f;
-    for (int t = lane; t < nv; t += 32) s += x[t * C + c];
-    const float mean = warp_sum(s) / cnt;
-    float v = 0.f;
-    for (int t = lane; t < nv; t += 32) {
-      const float d = x[t * C + c] - mean;
-      v += d * d;
-    }
-    const float stdv = sqrtf(warp_sum(v) / cnt);
-    if (lane == 0) {
-      float* out = stats + ((size_t)b * 6 + 2 * (col / C)) * C + c;
-      out[0] = mean;
-      out[C] = stdv;
-    }
-  }
+  cluster.sync();  // no block reads another's shared memory any more
 }
 
 constexpr int TUNE_BINS = 100;
@@ -506,6 +755,16 @@ __global__ void __launch_bounds__(TAIL_THREADS)
   select_and_histogram(Candidates<true>{skey, sbin, off, T, cap}, n, sh, tb + b);
 }
 
+// Shared memory of a stats block for cs blocks of R frames a clip, or 0 where
+// the launch cannot take that geometry.
+size_t stats_smem(int T, int M, int C, int cs, int R) {
+  if (T < WIDTH || M < 4 || M % 4 != 0 || C < 1 || cs < 1 || cs > MAX_CLUSTER || R < 1 ||
+      (long)cs * R < T)
+    return 0;
+  const size_t bytes = sizeof(float) * (size_t)stats_layout(R, M, C).total;
+  return bytes > MAX_SMEM ? 0 : bytes;
+}
+
 cudaError_t launch_tail(const unsigned* keys, const unsigned char* bins, const int* counts,
                         int* tb, int B, int T, int cap, cudaStream_t s) {
   cudaFuncAttributes fa;
@@ -564,18 +823,22 @@ cudaError_t launch_front(const void* audio, const void* lengths, const void* win
 }  // namespace
 
 // Stats mode: launches 1, 2 and 3.  F: frames per tile of launch 1; keys,
-// bins: [B, T, ceil((hi - lo) / 2)] candidate slots, counts [B, T].
+// bins: [B, T, ceil((hi - lo) / 2)] candidate slots, counts [B, T]; dctT
+// [C rounded up to 4, M + 4] (ops/spectromel.py:_device_tables); cs, R: the stats launch's blocks a clip and frames
+// a block (ops/spectromel.py:stats_plan).
 extern "C" int spectromel_launch(const void* audio, const void* lengths, const void* win,
                                  const void* tw, const void* mel_ranges, const void* mel_w,
                                  const void* rtab, const void* dctT, const void* sg, void* power,
                                  void* mel, void* keys, void* bins, void* counts, void* stats,
                                  void* tb, int B, int N, int n_fft, int hop, int F, int M, int C,
-                                 int lo, int hi, float c_ln2, void* stream) {
+                                 int cs, int R, int lo, int hi, float c_ln2, void* stream) {
   if (hop < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int T = N / hop + 1;
-  const size_t smem = sizeof(float) * 3 * (size_t)T * C;
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  // the stats launch's geometry is checked before anything is launched
+  const size_t smem = stats_smem(T, M, C, cs, R);
+  if (smem == 0 || (uintptr_t)mel % 16 != 0 || (uintptr_t)dctT % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = launch_front(audio, lengths, win, tw, mel_ranges, mel_w, rtab, power, mel,
                                  keys, bins, counts, B, N, n_fft, hop, F, M, lo, hi, c_ln2, 1, s);
   if (err != cudaSuccess) return (int)err;
@@ -583,8 +846,21 @@ extern "C" int spectromel_launch(const void* audio, const void* lengths, const v
   err = cudaFuncSetAttribute(spectromel_stats, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  spectromel_stats<<<B, 256, smem, s>>>((const float*)mel, (const int*)lengths, T, M, hop,
-                                        (const float*)dctT, C, (const float*)sg, (float*)stats);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, B);
+  cfg.blockDim = dim3(STATS_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, spectromel_stats, (const float*)mel, (const int*)lengths, T, M,
+                           hop, (const float*)dctT, C, R, (const float*)sg, (float*)stats);
+  if (err != cudaSuccess) return (int)err;
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   return (int)launch_tail((const unsigned*)keys, (const unsigned char*)bins, (const int*)counts,

@@ -43,3 +43,8 @@ def sg_deltas(
         edge_rows = torch.gather(edge, 1, offset.clamp(0, half - 1)[:, :, None].expand(B, T, C))
         outs.append(torch.where(is_edge[:, :, None], edge_rows, y))
     return tuple(outs)
+
+
+def sg_delta(x: torch.Tensor, n_valid: torch.Tensor, order: int = 1, width: int = 9) -> torch.Tensor:
+    """Single-order convenience wrapper over sg_deltas."""
+    return sg_deltas(x, n_valid, (order,), width)[0]

@@ -15,7 +15,8 @@ sequence featurizer does, and then returns None for it).
 tile: the shared-memory FFT, power, mel over each band's nonzero bins and
 the piptrack candidates, compacted per frame as
 `ops.chroma.compact_candidates` lays them out; in stats mode
-dB/DCT/SavGol/stats per clip; the tuning bin per clip from the compacted
+the dB clamp, DCT, SavGol deltas and stats by a cluster of blocks per
+clip, laid out by `stats_plan`; the tuning bin per clip from the compacted
 candidates, as `ops.chroma.tuning_bin_from_compacted` computes it).  The
 kernel takes n_fft in 512, 1024, 2048 and any hop >= 2 that divides n_fft
 and the bucket, in both modes.
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import math
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -82,16 +84,104 @@ def spectromel_plain(
     return power, stats, estimate_tuning_bin(power, sr, n_fft, n_chroma)
 
 
+SMEM_LIMIT = 232448  # bytes of shared memory a block can have on an H100
+STATS_THREADS = 256  # csrc/spectromel.cu: threads of a stats block
+MAX_CLUSTER = 8  # blocks of a portable cluster
+# blocks the stats launch aims at, about one on each of an H100's 132 SMs:
+# the best of 1, 2, 4 and 8 blocks a clip at B=256 x 3 s, B=64 x 48,128
+# samples and one 3 s request (tools/kernel_phases.py --stats-plans, PERF.md)
+STATS_BLOCKS = 128
+MIN_FRAMES = 8  # the fewest frames worth a block of its own
+SG_WIDTH = 9  # the SavGol window
+DCT_CHUNK = 20  # coefficients a warp's DCT tile spans (csrc/spectromel.cu: CHUNK)
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def stats_smem_bytes(rows: int, n_mels: int = 128, n_mfcc: int = 20) -> int:
+    """Shared memory of a stats block that owns `rows` frames, as
+    csrc/spectromel.cu:stats_layout lays it out: the mbarrier; every warp's
+    max of every rank; the dB mel rows it transforms (its frames, 8 before
+    and 4 after: `StatsPlan.window`), each padded by 4 floats (after the DCT
+    the same bytes hold the deltas); the DCT table [n_mfcc rounded up to 20,
+    n_mels + 4]; those rows' MFCC."""
+    w = rows + 12
+    floats = (4 + MAX_CLUSTER * STATS_THREADS // 32
+              + _round4(max(w * (n_mels + 4), 2 * rows * n_mfcc))
+              + _dct_rows(n_mfcc) * (n_mels + 4) + _round4(w * n_mfcc))
+    return 4 * floats
+
+
+def _dct_rows(n_mfcc: int) -> int:
+    """Rows of the stats launch's DCT table: n_mfcc rounded up to the
+    DCT_CHUNK coefficients a warp's tile spans."""
+    return -(-n_mfcc // DCT_CHUNK) * DCT_CHUNK
+
+
+class StatsPlan(NamedTuple):
+    """The stats launch's layout: `cs` blocks (a cluster) per clip, block q
+    owning the valid frames [q * rows, (q + 1) * rows), and each block's
+    shared memory in bytes."""
+
+    cs: int
+    rows: int
+    smem: int
+
+    def ranges(self, n_valid: int, T: int) -> list[tuple[int, int]]:
+        """Each block's own frames [start, end) of a clip of n_valid valid
+        frames in a bucket of T: it forms their deltas and partial sums."""
+        nv = min(n_valid, T)
+        return [(min(q * self.rows, nv), min((q + 1) * self.rows, nv)) for q in range(self.cs)]
+
+    def window(self, q: int, n_valid: int, T: int) -> tuple[int, int]:
+        """The frames [lo, hi) block q transforms: its own, the 8 before
+        (the interior rows' halo of 4, and a last-edge window that starts up
+        to 8 frames back), the 4 after, rows 0-8 for the first edge and, for
+        a clip of fewer than 9 frames, the masked frames up to 9 that its
+        last-edge rows read; (lo, lo) for a block without valid frames."""
+        start, end = self.ranges(n_valid, T)[q]
+        lo = max(0, q * self.rows - 8)
+        if end == start:
+            return lo, lo
+        return lo, min(min(max(n_valid, SG_WIDTH), T), max(end + 4, SG_WIDTH))
+
+
+def stats_plan(B: int, T: int, n_mels: int = 128, n_mfcc: int = 20) -> StatsPlan:
+    """Blocks per clip and frames per block of the stats launch for B clips
+    in a bucket of T frames (any of which may be valid: the lengths stay on
+    the card): up to 8 blocks (a portable cluster), STATS_BLOCKS over the
+    batch, no fewer than MIN_FRAMES frames a block, and more blocks where a
+    block's rows would not fit its shared memory.  Raises ValueError where
+    the launch cannot take the bucket."""
+    if T < SG_WIDTH or n_mels < 4 or n_mels % 4 or n_mfcc < 1:
+        raise ValueError(f"spectromel stats mode needs at least {SG_WIDTH} frames and n_mels a "
+                         f"multiple of 4; got T={T} n_mels={n_mels} n_mfcc={n_mfcc}")
+    cs = max(1, min(MAX_CLUSTER, -(-STATS_BLOCKS // B), -(-T // MIN_FRAMES)))
+    while cs < MAX_CLUSTER and stats_smem_bytes(-(-T // cs), n_mels, n_mfcc) > SMEM_LIMIT:
+        cs += 1
+    rows = -(-T // cs)
+    smem = stats_smem_bytes(rows, n_mels, n_mfcc)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"spectromel stats mode: {T} frames x {n_mels} mels exceed the shared "
+                         f"memory of a cluster of {MAX_CLUSTER} blocks")
+    return StatsPlan(cs, rows, smem)
+
+
 @lru_cache(maxsize=None)
 def _device_tables(device: str, sr: int, n_fft: int, n_mels: int, n_mfcc: int,
                    n_chroma: int) -> tuple[torch.Tensor, ...]:
     """The kernel's constant tables, uploaded once per device and geometry:
     Hann window, FFT twiddles, sparse mel ranges (int32) and weights, the
-    pitch residual table, the DCT and the SavGol taps."""
+    pitch residual table, the DCT [n_mfcc rounded up to 20, n_mels + 4]
+    (zero past n_mfcc and n_mels: the stats launch's shared-memory layout)
+    and the SavGol taps."""
     ranges, weights = mel_sparse(sr, n_fft, n_mels)
-    dct_t = fb.dct_mat(n_mfcc, n_mels).T  # [M, n_mfcc]
+    dct = np.zeros((_dct_rows(n_mfcc), n_mels + 4), np.float32)
+    dct[:n_mfcc, :n_mels] = fb.dct_mat(n_mfcc, n_mels)
     host = (fb.hann(n_fft), rfft_twiddles(n_fft), ranges, weights,
-            residual_table(sr, n_fft, n_fft // 2 + 1, n_chroma), dct_t, savgol_taps())
+            residual_table(sr, n_fft, n_fft // 2 + 1, n_chroma), dct, savgol_taps())
     return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device) for a in host)
 
 
@@ -104,15 +194,13 @@ def _spectromel_cuda(audio, lengths, sr, n_fft, hop, n_mels, n_mfcc, n_chroma, w
         raise ValueError(f"spectromel kernel needs n_fft in {FFT_SIZES}, hop | N, hop | n_fft "
                          f"and hop >= 2; got n_fft={n_fft} hop={hop} N={N}")
     T, K = N // hop + 1, n_fft // 2 + 1
-    if with_stats and 12 * T * n_mfcc > 232448:
-        raise ValueError(f"spectromel stats mode: {T} frames x {n_mfcc} MFCC exceed a block's "
-                         f"shared memory")
+    plan = stats_plan(B, T, n_mels=n_mels, n_mfcc=n_mfcc) if with_stats else None
     if audio.dtype != torch.float32 or lengths.device != audio.device:
         raise ValueError("spectromel kernel takes float32 audio and lengths on its device")
     audio = audio.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     lo, hi = band_range(sr, n_fft, PIP_FMIN, PIP_FMAX)
-    win, tw, ranges, weights, rtab, dct_t, sg = _device_tables(
+    win, tw, ranges, weights, rtab, dct, sg = _device_tables(
         str(audio.device), sr, n_fft, n_mels, n_mfcc, n_chroma)
     dev = audio.device
     power = torch.empty(B, T, K, device=dev)
@@ -139,10 +227,11 @@ def _spectromel_cuda(audio, lengths, sr, n_fft, hop, n_mels, n_mfcc, n_chroma, w
         spectromel.mel_launches += 1
         return power, mel, tb
     stats = torch.empty(B, 6, n_mfcc, device=dev)
-    fn = _build.bind("spectromel", "spectromel_launch", 16, 9, 1)
-    ptrs = [t.data_ptr() for t in (audio, lengths, win, tw, ranges, weights, rtab, dct_t, sg,
+    fn = _build.bind("spectromel", "spectromel_launch", 16, 11, 1)
+    ptrs = [t.data_ptr() for t in (audio, lengths, win, tw, ranges, weights, rtab, dct, sg,
                                    power, mel, keys, bins, counts, stats, tb)]
-    rc = _build.launch(fn, audio, *ptrs, B, N, n_fft, hop, tile, n_mels, n_mfcc, lo, hi, c_ln2)
+    rc = _build.launch(fn, audio, *ptrs, B, N, n_fft, hop, tile, n_mels, n_mfcc, plan.cs,
+                       plan.rows, lo, hi, c_ln2)
     _build.check(rc, "spectromel_launch")
     spectromel.launches += 1
     return power, stats, tb

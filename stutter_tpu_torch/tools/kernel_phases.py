@@ -1,6 +1,9 @@
 """Where the FFT kernels spend their time, phase by phase, on the card.
 
     python -m stutter_tpu_torch.tools.kernel_phases
+    python -m stutter_tpu_torch.tools.kernel_phases --stats
+    python -m stutter_tpu_torch.tools.kernel_phases --stats-plans
+    python -m stutter_tpu_torch.tools.kernel_phases --stats-timeline
 
 Builds variants of csrc/spectral_gate.cu, csrc/spectromel.cu and
 csrc/chroma_stats.cu with one phase switched off (a -D flag guards each
@@ -11,17 +14,30 @@ JSON line per variant: each kernel's device time per call from
 torch.profiler and the card's name and power limit.  A phase's cost is the
 full build's time less the variant's.  The tail's phases: `tail_load`
 (reading the candidates into shared memory), `tail_select` (the four radix
-passes), `tail_histogram`; chroma_stats's: `chroma_load` (the power loads),
-`chroma_project` (11 of the 12 channels' FMAs and filterbank reads),
-`chroma_reduce` (the leader's mean and variance).  The phases are found
+passes), `tail_histogram`; the stats launch's: `stats_load` (the bulk
+copies of the mel rows), `stats_dct` (the DCT), `stats_deltas` (the
+SavGol rows), `stats_reduce` (the means and stds);
+chroma_stats's: `chroma_load` (the power loads), `chroma_project` (11 of
+the 12 channels' FMAs and filterbank reads), `chroma_reduce` (the leader's
+mean and variance).  The phases are found
 by text in the sources: when a source changes, a phase whose text is gone
 stops the run, and its pattern here is brought up to date.
+
+With --stats it instead times each kernel of the stats-mode wrapper at
+B=256 x 3 s, at the MLP stream's [64, 48128] and at one 3 s request (only
+the wrapper is called: `PYTHONPATH=<other tree> python
+stutter_tpu_torch/tools/kernel_phases.py --stats` times another tree's
+kernels); with --stats-plans, the stats launch alone at those shapes at
+each cluster size, beside the size `ops.spectromel.stats_plan` picks; with
+--stats-timeline, the SM cycles of each of its stages (clock64 stamps in a
+variant of the source).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import hashlib
 import json
 import math
 import subprocess
@@ -68,6 +84,14 @@ PHASES = {
                               "  for (int f = warp; f < (OFF ? 0 : tf); f += THREADS / 32) {\n"
                               "    const size_t row"),
         "frames_mel": ("i < tf * n_mels; i += THREADS", "i < (OFF ? 0 : tf * n_mels); i += THREADS"),
+        "stats_load": ("    const int ncopy = nld;", "    const int ncopy = OFF ? 0 : nld;"),
+        "stats_dct": ("item < tiles * chunks; item += STATS_WARPS) {",
+                      "item < (OFF ? 0 : tiles * chunks); item += STATS_WARPS) {"),
+        "stats_deltas": ("  for (int i = tid; i < nvr * C; i += STATS_THREADS) {\n    const int r = i / C",
+                         "  for (int i = tid; i < (OFF ? 0 : nvr * C); i += STATS_THREADS) {\n"
+                         "    const int r = i / C"),
+        "stats_reduce": ("col0 < NC; col0 += STATS_COLS * nw) {",
+                         "col0 < (OFF ? 0 : NC); col0 += STATS_COLS * nw) {"),
         "tail_load": ("i0 < n; i0 += 4 * TAIL_THREADS", "i0 < (OFF ? 0 : n); i0 += 4 * TAIL_THREADS"),
         "tail_select": ("for (int shift = 24; shift >= 0; shift -= 8)",
                         "for (int shift = 24; shift >= (OFF ? 32 : 0); shift -= 8)"),
@@ -182,9 +206,12 @@ def gate_runner(lib, dev):
                                  cfg.sigmoid_slope_nonstationary, cfg.prop_decrease)
 
 
-def spectromel_runner(lib, dev):
-    """The stats-mode launcher at B=256 x 3 s, 48000-sample clips of tones
-    in noise (the shapes and kind of input chip_smoke.py measures)."""
+def spectromel_runner(lib, dev, B: int = 256, N: int = 49152, length: int = 48000,
+                      plan=None):
+    """The stats-mode launcher, by default at B=256 x 3 s: clips of `length`
+    samples of tones in noise (the kind of input chip_smoke.py measures),
+    the stats launch laid out by `plan` (the wrapper's stats_plan by
+    default)."""
     import numpy as np
     import torch
 
@@ -192,14 +219,15 @@ def spectromel_runner(lib, dev):
     from stutter_tpu_torch.ops import consts
     from stutter_tpu_torch.ops import spectromel as sm
 
-    B, N, n_fft, hop = 256, 49152, 2048, 512
+    n_fft, hop = 2048, 512
     T, K = N // hop + 1, n_fft // 2 + 1
+    plan = plan or sm.stats_plan(B, T)
     rng = np.random.RandomState(0)
     t = np.arange(N) / 16000
     audio = (0.1 * rng.randn(B, N) + 0.4 * np.sin(2 * np.pi * rng.uniform(80, 3500, (B, 1)) * t))
-    audio[:, 48000:] = 0
+    audio[:, length:] = 0
     audio = torch.from_numpy(audio.astype(np.float32)).to(dev)
-    lengths = torch.full((B,), 48000, dtype=torch.int32, device=dev)
+    lengths = torch.full((B,), length, dtype=torch.int32, device=dev)
     lo, hi = consts.band_range(16000, n_fft, consts.PIP_FMIN, consts.PIP_FMAX)
     tables = sm._device_tables(str(dev), 16000, n_fft, 128, 20, 12)
     cap = (hi - lo + 1) // 2
@@ -210,11 +238,11 @@ def spectromel_runner(lib, dev):
             torch.zeros(B, T, dtype=torch.int32, device=dev),
             torch.empty(B, 6, 20, device=dev), torch.empty(B, dtype=torch.int32, device=dev)]
     fn = lib.spectromel_launch
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
     ptrs = [x.data_ptr() for x in (audio, lengths, *tables, *outs)]
     return lambda: _build.launch(fn, audio, *ptrs, B, N, n_fft, hop,
-                                 consts.frame_tile(n_fft, T, B), 128, 20, lo, hi,
-                                 12 / math.log(2.0))
+                                 consts.frame_tile(n_fft, T, B), 128, 20, plan.cs, plan.rows, lo,
+                                 hi, 12 / math.log(2.0))
 
 
 def chroma_runner(lib, dev):
@@ -244,9 +272,123 @@ RUNNERS = {"spectral_gate.cu": gate_runner, "spectromel.cu": spectromel_runner,
            "chroma_stats.cu": chroma_runner}
 
 
-def main() -> int:
+# the stats launch's shapes: (B, N, clip length) -- a batch of 3 s clips, the
+# MLP stream's windows, one 3 s request
+STATS_SHAPES = ((256, 49152, 48000), (64, 48128, 48128), (1, 49152, 48000))
+
+
+def stats_times(dev, card: str) -> None:
+    """Each kernel's device time per call of the stats-mode wrapper
+    (`ops.spectromel.spectromel`) at each of STATS_SHAPES, and a SHA-1 of
+    the stats it returns: one JSON line a shape.  It calls only the wrapper,
+    so it times any tree of the port whose package is first on the path,
+    and two trees whose stats agree bit for bit print the same hash."""
+    import numpy as np
     import torch
 
+    from stutter_tpu_torch.ops.spectromel import spectromel
+
+    for B, N, length in STATS_SHAPES:
+        rng = np.random.RandomState(0)
+        t = np.arange(N) / 16000
+        audio = (0.1 * rng.randn(B, N)
+                 + 0.4 * np.sin(2 * np.pi * rng.uniform(80, 3500, (B, 1)) * t))
+        audio[:, length:] = 0
+        audio = torch.from_numpy(audio.astype(np.float32)).to(dev)
+        lengths = torch.full((B,), length, dtype=torch.int32, device=dev)
+        stats = spectromel(audio, lengths)[1].cpu().numpy()
+        print(json.dumps({"shape": [B, N], "length": length,
+                          "ms": kernel_times(lambda: spectromel(audio, lengths)),
+                          "stats_sha1": hashlib.sha1(stats.tobytes()).hexdigest(), "card": card}),
+              flush=True)
+
+
+def stats_plans(dev, card: str) -> None:
+    """The stats launch's device time at each of STATS_SHAPES for every
+    cluster size the bucket takes (1, 2, 4, 8 blocks a clip), beside the
+    wrapper's choice: one JSON line a shape."""
+    from stutter_tpu_torch import _build
+    from stutter_tpu_torch.ops import spectromel as sm
+
+    lib = _build.load_library("spectromel")
+    for B, N, length in STATS_SHAPES:
+        T = N // 512 + 1
+        times = {}
+        for cs in (1, 2, 4, 8):
+            rows = -(-T // cs)
+            plan = sm.StatsPlan(cs, rows, sm.stats_smem_bytes(rows))
+            run = spectromel_runner(lib, dev, B, N, length, plan)
+            times[cs] = kernel_times(lambda: _check(run()))["spectromel_stats"]
+        print(json.dumps({"shape": [B, N], "length": length, "plan": sm.stats_plan(B, T)._asdict(),
+                          "stats_ms_by_cs": times, "card": card}), flush=True)
+
+
+# the stats launch's stages, each ending where its text ends in
+# csrc/spectromel.cu: a clock64 stamp goes after each (--stats-timeline)
+STATS_STAGES = (
+    ("load", "  mbar_wait(bar_a, 0);\n"),
+    ("max", "  cluster.sync();  // every warp's max is in every block\n"),
+    ("floor", "  const float floor_db = warp_max(top) - 80.0f;\n"),
+    ("dct", "  __syncthreads();  // the MFCC is in; the mel rows are free\n"),
+    ("deltas", "    d2[i] = a2;\n  }\n  __syncthreads();\n"),
+    ("gather", "  cluster.sync();  // every block's MFCC and deltas are in\n"),
+    ("stats", "  cluster.sync();  // no block reads another's shared memory any more\n"),
+)
+STATS_START = "  const uint32_t bar_a = smem_addr(bar);\n"
+
+
+def stats_timeline(dev, card: str) -> None:
+    """SM cycles of each stage of the stats launch (STATS_STAGES) for the
+    blocks of clip 0, at each of STATS_SHAPES with the wrapper's plan: a
+    variant of csrc/spectromel.cu stamps clock64() from thread 0 of each
+    block after each stage into a device array.  One JSON line a shape: the
+    leader's cycles a stage and each rank's total."""
+    import numpy as np
+    import torch
+
+    from stutter_tpu_torch import _build
+    from stutter_tpu_torch.ops import spectromel as sm
+
+    text = (_build.CSRC / "spectromel.cu").read_text()
+    head = ("__device__ long long stats_stamps[8][16];\n#define STAMP(k) do { if (threadIdx.x == 0 "
+            "&& blockIdx.y == 0) stats_stamps[blockIdx.x][k] = clock64(); } while (0)\n")
+    text = text.replace("namespace cg = cooperative_groups;\n",
+                        "namespace cg = cooperative_groups;\n" + head, 1)
+    for k, (stage, anchor) in enumerate((("start", STATS_START), *STATS_STAGES)):
+        if text.count(anchor) != 1:
+            raise SystemExit(f"spectromel.cu: the text of stage {stage} is gone; update STATS_STAGES")
+        text = text.replace(anchor, anchor + f"  STAMP({k});\n")
+    text += ('\nextern "C" int stats_stamps_copy(void* dst) {\n'
+             '  return (int)cudaMemcpyFromSymbol(dst, stats_stamps, sizeof(stats_stamps));\n}\n')
+    with tempfile.TemporaryDirectory() as d:
+        src, so = Path(d) / "spectromel.cu", Path(d) / "libspectromel-timeline.so"
+        src.write_text(text)
+        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+                              str(so), str(src)], capture_output=True, text=True)
+        if res.returncode:
+            raise SystemExit(f"nvcc failed for the stats timeline:\n{res.stderr[-2000:]}")
+        lib = ctypes.CDLL(str(so))
+        lib.stats_stamps_copy.argtypes = [ctypes.c_void_p]
+        for B, N, length in STATS_SHAPES:
+            plan = sm.stats_plan(B, N // 512 + 1)
+            run = spectromel_runner(lib, dev, B, N, length)
+            for _ in range(3):  # warm, then the last launch's stamps
+                _check(run())
+            torch.cuda.synchronize()
+            stamps = np.zeros((8, 16), np.int64)
+            _check(lib.stats_stamps_copy(stamps.ctypes.data))
+            cyc = np.diff(stamps[:plan.cs, :len(STATS_STAGES) + 1], axis=1)
+            print(json.dumps({"shape": [B, N], "plan": plan._asdict(),
+                              "leader_cycles": dict(zip((n for n, _ in STATS_STAGES),
+                                                        cyc[0].tolist())),
+                              "rank_total_cycles": cyc.sum(1).tolist(), "card": card}),
+                  flush=True)
+
+
+def main(argv=None) -> int:
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("kernel_phases: no CUDA GPU available", file=sys.stderr)
         return 1
@@ -255,6 +397,17 @@ def main() -> int:
     dev = resolve_device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
+    if "--stats" in argv:
+        stats_times(dev, card)
+        return 0
+    if "--stats-plans" in argv:
+        stats_plans(dev, card)
+        return 0
+    if "--stats-timeline" in argv:
+        clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                               capture_output=True, text=True).stdout.strip()
+        stats_timeline(dev, f"{card}, max SM clock {clock}")
+        return 0
     with tempfile.TemporaryDirectory() as d:
         libs = build_variants(Path(d))
         for (src, phase), lib in libs.items():

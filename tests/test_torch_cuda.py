@@ -284,6 +284,84 @@ def test_chroma_stats_cluster_shapes_match_plain(cuda, B, T, K, n_valid):
     assert torch.equal(got, chroma_stats(p, tb, nv, n_fft=2 * (K - 1)))  # run to run
 
 
+def _stats_clips(cuda, B, N, hop, n_valid, seed):
+    """B clips in a bucket of N samples: the first len(n_valid) with those
+    valid frame counts, the rest of random lengths from N / 4 to N (the last
+    of two or more silent) -> (audio, lengths) on the card."""
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(N // 4, N + 1, size=B)
+    for b, nv in enumerate(n_valid):
+        lengths[b] = min((nv - 1) * hop + rng.randint(hop), N)
+    audio = torch.from_numpy(_clips(seed, max(B, 2), N)[:B]).to(cuda)
+    for b, n in enumerate(lengths):
+        audio[b, n:] = 0
+    return audio, torch.from_numpy(lengths.astype(np.int32)).to(cuda)
+
+
+# the n_valid cases of tests/test_torch_spectromel_stats.py; "edge": a clip
+# that ends on a block boundary of the launch's plan; "T": the whole bucket
+STATS_N_VALID = (1, 5, 8, 9, 10, "edge", "T")
+
+
+@pytest.mark.parametrize("B,N,n_fft,hop,cases", [
+    (1, 49152, 2048, 512, (94,)),  # one 3 s request: 8 blocks of 13 frames
+    (257, 49152, 2048, 512, STATS_N_VALID),  # past 256 clips: a block a clip
+    (7, 24576, 2048, 512, STATS_N_VALID),  # 7 blocks of 7 frames
+    (4, 163840, 2048, 512, ("T", 313, 200, 5)),  # the 10.1 s bucket, 321 frames
+    (7, 24576, 1024, 128, STATS_N_VALID),  # the other FFT sizes at the ratios of
+    (7, 24576, 512, 64, STATS_N_VALID),  # test_spectromel_kernel_at_other_fft_sizes_and_ratios
+])
+def test_spectromel_stats_launch_matches_plain(cuda, B, N, n_fft, hop, cases):
+    """The stats launch (a cluster of blocks a clip) against the plain
+    version, n_valid < 9 and a clip ending on a block boundary included."""
+    from stutter_tpu_torch.ops.chroma import estimate_tuning_bin
+    from stutter_tpu_torch.ops.spectromel import spectromel, spectromel_plain, stats_plan
+
+    T = N // hop + 1
+    plan = stats_plan(B, T)
+    resolve = {"edge": min(plan.rows * max(1, plan.cs // 2), T), "T": T}
+    n_valid = [resolve.get(nv, nv) for nv in cases]
+    audio, le = _stats_clips(cuda, B, N, hop, n_valid, seed=14)
+    kw = dict(n_fft=n_fft, hop_length=hop)
+    before = spectromel.launches
+    p, st, tb = spectromel(audio, le, **kw)
+    assert spectromel.launches == before + 1
+    pp, stp, _ = spectromel_plain(audio, le, **kw)
+    assert st.shape == (B, 6, 20) and bool(torch.isfinite(st).all())
+    assert float((p - pp).abs().max() / pp.abs().max()) < 1e-5
+    err = (st - stp).abs()
+    assert float(err.max()) < 2e-3 and float(err.mean()) < 2e-4
+    for b in range(len(n_valid)):  # each n_valid case on its own
+        assert float(err[b].max()) < 2e-3 and float(err[b].mean()) < 2e-4, n_valid[b]
+    assert torch.equal(tb, estimate_tuning_bin(p, 16000, n_fft))
+
+
+def test_spectromel_stats_do_not_depend_on_the_batch(cuda):
+    """A clip's stats are the same bits alone (a cluster of 8 blocks), in a
+    batch of 64 (2 blocks a clip) and in a batch of 256 (one block): each
+    column sums in the one-block kernel's order whatever the split."""
+    from stutter_tpu_torch.ops.spectromel import spectromel, stats_plan
+
+    for N, length in ((49152, 48000), (163840, 160000)):
+        audio, le = _stats_clips(cuda, 256, N, 512, (1 + length // 512,), seed=16)
+        alone = spectromel(audio[:1], le[:1])[1]
+        assert [stats_plan(B, N // 512 + 1).cs for B in (1, 64, 256)] == [8, 2, 1]
+        for B in (64, 256):
+            assert torch.equal(spectromel(audio[:B], le[:B])[1][:1], alone), (N, B)
+
+
+def test_spectromel_stats_launch_is_bitwise_repeatable(cuda):
+    """Two launches on the same input give the same stats bit for bit: the
+    partial sums join in rank order, with no float atomics."""
+    from stutter_tpu_torch.ops.spectromel import spectromel
+
+    for B, N in ((1, 49152), (64, 48128), (256, 49152)):
+        audio, le = _stats_clips(cuda, B, N, 512, (), seed=15)
+        first = spectromel(audio, le)[1].clone()
+        for _ in range(3):
+            assert torch.equal(spectromel(audio, le)[1], first)
+
+
 def test_mel_mode_without_tuning_skips_only_the_tail(cuda):
     """with_tuning=False (the sequence featurizer): the same power and mel
     bit for bit, no tuning bin, one mel-mode launch."""
