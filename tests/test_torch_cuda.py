@@ -455,11 +455,15 @@ def test_heads_vote_and_streams_on_the_card_match_the_cpu(cuda, tmp_path):
 
 def test_fed_training_steps_on_the_card_equal_the_cpu(cuda):
     """Five GridTrainer steps at the published widths (149-256-128-64-3,
-    G = 6, batch 128), the same initial weights, batch rows and dropout
-    masks fed to both: the card's parameters equal the CPU's within 1e-4
-    relative, normwise per tensor.  Then batches drawn on the card never take a padded row."""
-    from stutter_tpu_torch.train.trainer import (
-        GridTrainer, MLPTrainConfig, draw_batch, init_grid)
+    G = 6, batch 128), the batch rows and dropout masks fed, each held on
+    its own to FP64 from the state of an FP64 run of the same steps on the
+    CPU (chip_smoke.check_fed_steps): the card's loss within 1e-5 relative,
+    its gradients within 1e-4 normwise per entry and tensor with its own
+    sign at the ReLU gates that rounding decides, Adam's update given its
+    gradient within 1e-4; the card's recomputed pre-activations bitwise
+    equal.  Then batches drawn on the card never take a padded row."""
+    import chip_smoke
+    from stutter_tpu_torch.train.trainer import MLPTrainConfig, draw_batch
 
     cfg = MLPTrainConfig()
     G, N, steps = 6, 300, 5
@@ -469,18 +473,10 @@ def test_fed_training_steps_on_the_card_equal_the_cpu(cuda):
     idx = rng.randint(0, N, (steps, G, cfg.batch_size))
     keeps = [[rng.rand(G, cfg.batch_size, h) < 1 - cfg.dropout for h in cfg.hidden]
              for _ in range(steps)]
-    out = {}
-    for dev in (cuda, torch.device("cpu")):
-        tr = GridTrainer(init_grid(range(42, 42 + G), 149, cfg, dev), cfg, 100)
-        rows = np.arange(G)[:, None]
-        for t in range(steps):
-            tr.step(torch.from_numpy(X[rows, idx[t]]).to(dev),
-                    torch.from_numpy(y[rows, idx[t]]).to(dev),
-                    torch.ones(G, cfg.batch_size, device=dev),
-                    [torch.from_numpy(k).to(dev) for k in keeps[t]])
-        out[dev.type] = {k: v.cpu().numpy() for k, v in tr.params().items()}
-    for k, ref in out["cpu"].items():  # normwise: see chip_smoke.step_errors
-        assert np.linalg.norm(out["cuda"][k] - ref) / np.linalg.norm(ref) < 1e-4, k
+    checked, _ = chip_smoke.check_fed_steps(cuda, X, y, idx, keeps, range(42, 42 + G), cfg)
+    assert len(checked) == steps
+    for s in checked:
+        assert s["ok"] and s["bitwise"], s
 
     w = torch.ones(G, N, device=cuda)
     w[:, 200:] = 0
