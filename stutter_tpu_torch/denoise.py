@@ -18,8 +18,9 @@ import torch
 from stutter_tpu_torch.config import DenoiseConfig
 from stutter_tpu_torch.device import resolve_device
 from stutter_tpu_torch.ops.consts import F32_TINY
-from stutter_tpu_torch.ops.frontend import DEFAULT_BUCKETS, pad_to_bucket
+from stutter_tpu_torch.ops.frontend import DEFAULT_BUCKETS, count_batch, pad_batch, pad_to_bucket
 from stutter_tpu_torch.ops.spectral_gate import spectral_gate
+from stutter_tpu_torch.utils.profiling import span, tracing
 
 PAD = 30000  # noisereduce chunk padding (samples)
 
@@ -58,24 +59,31 @@ def denoise_clips(
     device: torch.device | str = "cuda",
 ) -> list[np.ndarray]:
     """Host wrapper: denoise a list of 1-D clips, grouped into sample buckets,
-    on `device`."""
+    on `device`.  Traced, the call is the span `denoise_clips` and each
+    batch `denoise_clips.batch`, whose leaves are pad, h2d, `denoise_batch`
+    (the launches), d2h and unpad (ops.frontend.count_batch counts it)."""
     device = resolve_device(device)
     out: list[np.ndarray | None] = [None] * len(clips)
-    by_bucket: dict[int, list[int]] = {}
-    for i, y in enumerate(clips):
-        by_bucket.setdefault(pad_to_bucket(len(y), DEFAULT_BUCKETS), []).append(i)
-    for bucket, idxs in by_bucket.items():
-        for s in range(0, len(idxs), batch_size):
-            chunk = idxs[s : s + batch_size]
-            batch = np.zeros((len(chunk), bucket), np.float32)
-            lens = np.zeros(len(chunk), np.int32)
-            for j, i in enumerate(chunk):
-                y = clips[i][:bucket]
-                batch[j, : len(y)] = y
-                lens[j] = len(y)
-            cleaned = denoise_batch(
-                torch.from_numpy(batch).to(device), torch.from_numpy(lens).to(device), cfg
-            ).cpu().numpy()
-            for j, i in enumerate(chunk):
-                out[i] = cleaned[j, : lens[j]]
+    with span("denoise_clips"):
+        by_bucket: dict[int, list[int]] = {}
+        for i, y in enumerate(clips):
+            by_bucket.setdefault(pad_to_bucket(len(y), DEFAULT_BUCKETS), []).append(i)
+        for bucket, idxs in by_bucket.items():
+            for s in range(0, len(idxs), batch_size):
+                chunk = idxs[s : s + batch_size]
+                with span("denoise_clips.batch"):
+                    with span("denoise_clips.pad"):
+                        batch, lens = pad_batch(clips, chunk, bucket, len(chunk))
+                    with span("denoise_clips.h2d"):
+                        audio = torch.from_numpy(batch).to(device)
+                        lengths = torch.from_numpy(lens).to(device)
+                    with span("denoise_batch"):
+                        cleaned = denoise_batch(audio, lengths, cfg)
+                    with span("denoise_clips.d2h"):
+                        cleaned = cleaned.cpu().numpy()
+                    with span("denoise_clips.unpad"):
+                        for j, i in enumerate(chunk):
+                            out[i] = cleaned[j, : lens[j]]
+                    if tracing():
+                        count_batch("denoise_clips", batch, lens, cleaned.nbytes)
     return out  # type: ignore[return-value]

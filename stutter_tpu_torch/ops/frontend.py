@@ -27,6 +27,7 @@ from stutter_tpu_torch.ops.masked import frame_mask, masked_mean_std
 from stutter_tpu_torch.ops.spectral import db_from_mel
 from stutter_tpu_torch.ops.spectromel import spectromel
 from stutter_tpu_torch.parallel.mesh import resolve_mesh, shard_batch
+from stutter_tpu_torch.utils.profiling import count, span, tracing
 
 # Sample-count buckets (multiples of hop=512) covering 0.45-10.1 s at 16 kHz.
 DEFAULT_BUCKETS = (24576, 49152, 98304, 163840)
@@ -85,6 +86,44 @@ def pad_to_bucket(n: int, buckets=DEFAULT_BUCKETS) -> int:
     return buckets[-1]
 
 
+def pad_batch(clips: list[np.ndarray], idxs: list[int], bucket: int,
+              rows: int) -> tuple[np.ndarray, np.ndarray]:
+    """The clips `idxs`, each cut to `bucket` samples, zero-padded into
+    rows 0..len(idxs)-1 of a [rows, bucket] float32 batch -> (batch,
+    lengths [rows] int32, 0 for the rows past the clips)."""
+    batch = np.zeros((rows, bucket), np.float32)
+    lens = np.zeros(rows, np.int32)
+    for j, i in enumerate(idxs):
+        y = clips[i][:bucket]
+        batch[j, : len(y)] = y
+        lens[j] = len(y)
+    return batch, lens
+
+
+def count_batch(owner: str, batch: np.ndarray, lens: np.ndarray, d2h_bytes: int) -> None:
+    """The corpus path's counters for one padded batch of `owner` (the
+    profiling module's counters "<owner>.<counter>"): batches, the samples
+    sent (pad_samples) and the clips' own (valid_samples), the bytes
+    uploaded (the batch and its lengths) and read back."""
+    count(f"{owner}.batches", 1)
+    count(f"{owner}.pad_samples", batch.size)
+    count(f"{owner}.valid_samples", int(lens.sum()))
+    count(f"{owner}.h2d_bytes", batch.nbytes + lens.nbytes)
+    count(f"{owner}.d2h_bytes", d2h_bytes)
+
+
+def launch_shards(batch_fn, shards) -> list[torch.Tensor]:
+    """`batch_fn` on every shard (shard_batch's (audio, lengths) lists),
+    without gradients; nothing is read back."""
+    with torch.no_grad():
+        return [batch_fn(a, n) for a, n in zip(*shards)]
+
+
+def gather(outs: list[torch.Tensor]) -> np.ndarray:
+    """The shards' outputs read back and joined in mesh order."""
+    return torch.cat([o.cpu() for o in outs]).numpy()
+
+
 def sharded_batch_fn(batch_fn, mesh):
     """`batch_fn(audio [B, N], lengths [B]) -> [B, D]` over the mesh ->
     `run(audio, lengths) -> numpy [B, D]`: the batch (numpy or tensors, B a
@@ -95,10 +134,7 @@ def sharded_batch_fn(batch_fn, mesh):
     between shards; a mesh of one is the batch on its device."""
 
     def run(audio, lengths) -> np.ndarray:
-        shards = shard_batch(mesh, audio, lengths)
-        with torch.no_grad():
-            outs = [batch_fn(a, n) for a, n in zip(*shards)]
-        return torch.cat([o.cpu() for o in outs]).numpy()
+        return gather(launch_shards(batch_fn, shard_batch(mesh, audio, lengths)))
 
     return run
 
@@ -113,28 +149,37 @@ def run_bucketed(
     mesh=None,
 ) -> np.ndarray:
     """Group clips by sample bucket, pad, run `batch_fn(audio [B, N],
-    lengths [B]) -> [B, out_dim]` over the mesh (sharded_batch_fn), and
+    lengths [B]) -> [B, out_dim]` over the mesh (as sharded_batch_fn), and
     restore the order.  The mesh is `mesh`, or every visible GPU for an
     unindexed `cuda` and the one device asked for otherwise
     (parallel.mesh.resolve_mesh); a batch is padded to a multiple of its
-    size with zero-length rows, whose outputs are dropped."""
+    size with zero-length rows, whose outputs are dropped.  Traced, the
+    call is the span `run_bucketed` and each batch `run_bucketed.batch`,
+    whose leaves are pad, h2d, launch, d2h and scatter (count_batch counts
+    it)."""
     mesh = resolve_mesh(mesh, device)
-    run = sharded_batch_fn(batch_fn, mesh)
     out = np.zeros((len(clips), out_dim), np.float32)
-    by_bucket: dict[int, list[int]] = {}
-    for i, y in enumerate(clips):
-        by_bucket.setdefault(pad_to_bucket(len(y), buckets), []).append(i)
-    for bucket, idxs in by_bucket.items():
-        for s in range(0, len(idxs), batch_size):
-            chunk = idxs[s : s + batch_size]
-            rows = -(-len(chunk) // len(mesh)) * len(mesh)
-            batch = np.zeros((rows, bucket), np.float32)
-            lens = np.zeros(rows, np.int32)
-            for j, i in enumerate(chunk):
-                y = clips[i][:bucket]
-                batch[j, : len(y)] = y
-                lens[j] = len(y)
-            out[chunk] = run(batch, lens)[: len(chunk)]
+    with span("run_bucketed"):
+        by_bucket: dict[int, list[int]] = {}
+        for i, y in enumerate(clips):
+            by_bucket.setdefault(pad_to_bucket(len(y), buckets), []).append(i)
+        for bucket, idxs in by_bucket.items():
+            for s in range(0, len(idxs), batch_size):
+                chunk = idxs[s : s + batch_size]
+                with span("run_bucketed.batch"):
+                    with span("run_bucketed.pad"):
+                        rows = -(-len(chunk) // len(mesh)) * len(mesh)
+                        batch, lens = pad_batch(clips, chunk, bucket, rows)
+                    with span("run_bucketed.h2d"):
+                        shards = shard_batch(mesh, batch, lens)
+                    with span("run_bucketed.launch"):
+                        outs = launch_shards(batch_fn, shards)
+                    with span("run_bucketed.d2h"):
+                        got = gather(outs)
+                    with span("run_bucketed.scatter"):
+                        out[chunk] = got[: len(chunk)]
+                    if tracing():
+                        count_batch("run_bucketed", batch, lens, got.nbytes)
     return out
 
 

@@ -1,7 +1,14 @@
 """Timing and tracing (counterpart of stutter_tpu/utils/profiling.py):
 
-  * StageTimer -- per-stage wall-clock counters; the corpus entry points
-    log a stage report to the `stutter_tpu_torch.profiling` logger.
+  * span(name) / count(name, n) -- the port's own spans and counters,
+    recorded only while a torch profiler records (`tracing()`): a span is
+    a record_function range "stp.<name>" in the profiler's trace, on the
+    clock of its kernels and copies, and is kept in memory too
+    (`spans()`); a counter adds to an in-memory table (`counters()`).
+    With no profiler recording, each costs one flag check.
+  * StageTimer -- per-stage wall-clock counters (each stage a span); the
+    corpus entry points log a stage report to the
+    `stutter_tpu_torch.profiling` logger.
   * trace(logdir, device) -- torch.profiler over the wrapped region, CUDA
     activity included on a CUDA device; writes a trace that TensorBoard's
     profiler plugin and a Chrome-trace viewer (chrome://tracing, Perfetto)
@@ -20,15 +27,102 @@ import contextlib
 import dataclasses
 import logging
 import os
+import threading
 import time
 from collections import defaultdict
 
 import numpy as np
 import torch
+import torch.autograd.profiler as autograd_profiler
 
 from stutter_tpu_torch.device import resolve_device
 
 log = logging.getLogger("stutter_tpu_torch.profiling")
+
+SPAN_PREFIX = "stp."
+
+
+def tracing() -> bool:
+    """Whether a torch profiler is recording (trace(), profile_window, or
+    any torch.profiler.profile): the port's spans and counters record only
+    then."""
+    return autograd_profiler._is_profiler_enabled
+
+
+@dataclasses.dataclass(frozen=True)
+class SpanRecord:
+    """One span kept in memory: its name (without SPAN_PREFIX), its start
+    and end on the host's monotonic clock (time.perf_counter_ns), taken
+    inside its record_function range, and its thread's native id (the
+    `tid` of the range in the profiler's trace)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    tid: int
+
+
+class _Record:
+    """The process's spans and counters, under a lock: the service's
+    threads call the corpus path too (infer's denoise_clips)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.counts: dict[str, int] = defaultdict(int)
+        self.spans: list[SpanRecord] = []
+
+
+_RECORD = _Record()
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "range", "start_ns")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.range = torch.profiler.record_function(SPAN_PREFIX + name)
+
+    def __enter__(self):
+        self.range.__enter__()
+        self.start_ns = time.perf_counter_ns()
+
+    def __exit__(self, *exc):
+        end_ns = time.perf_counter_ns()
+        self.range.__exit__(*exc)
+        rec = SpanRecord(self.name, self.start_ns, end_ns, threading.get_native_id())
+        with _RECORD.lock:
+            _RECORD.spans.append(rec)
+
+
+def span(name: str):
+    """A span over the wrapped block while a profiler records (a
+    record_function range "stp.<name>", also kept in memory); otherwise a
+    shared no-op context."""
+    if not autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n) -> None:
+    """Add `n` to the counter `name` ("<owner>.<counter>") while a profiler
+    records; otherwise nothing."""
+    if autograd_profiler._is_profiler_enabled:
+        with _RECORD.lock:
+            _RECORD.counts[name] += int(n)
+
+
+def counters() -> dict[str, int]:
+    """A snapshot of every counter counted in this process."""
+    with _RECORD.lock:
+        return dict(_RECORD.counts)
+
+
+def spans() -> list[SpanRecord]:
+    """A snapshot of every span recorded in this process, in the order they
+    ended."""
+    with _RECORD.lock:
+        return list(_RECORD.spans)
 
 
 class StageTimer:
@@ -42,7 +136,8 @@ class StageTimer:
     def stage(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             self.totals[name] += dt
@@ -62,7 +157,7 @@ class StageTimer:
 
 # On the H100 machine this repo is measured on, torch.profiler loses the
 # first kernels of a window, a few more the longer the process has run
-# (tools/profile_drift.py; a window of chip_smoke.py's phase 2 once held
+# (PERF.md §6, Findings; a window of chip_smoke.py's phase 2 once held
 # no `tuning_tail`), and idle host time before the region alone does not
 # keep them.  A window with device activity therefore opens on
 # WINDOW_PAD_S of idle host time and a burst of WINDOW_BURST launches of
@@ -125,7 +220,9 @@ def trace(logdir: str, device: torch.device | str = "cuda"):
     synchronised before the trace stops, so kernels still queued are in
     it, and a trace that holds fewer device kernels than the region's
     kernel launches raises TraceIncomplete after it is written.  The file lands in `logdir` as
-    <host>_<pid>.<ms>.pt.trace.json; yields the profiler."""
+    <host>_<pid>.<ms>.pt.trace.json; the counters the region counted are
+    logged to the `stutter_tpu_torch.profiling` logger.  Yields the
+    profiler."""
     from torch.profiler import ProfilerActivity, tensorboard_trace_handler
 
     dev = resolve_device(device)
@@ -135,6 +232,7 @@ def trace(logdir: str, device: torch.device | str = "cuda"):
             raise RuntimeError("this torch build cannot trace CUDA activity")
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    before = counters()
     with profile_window(activities, on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
         try:
             yield prof
@@ -142,6 +240,8 @@ def trace(logdir: str, device: torch.device | str = "cuda"):
             if dev.type == "cuda":
                 for i in range(torch.cuda.device_count()):
                     torch.cuda.synchronize(i)
+    counted = {k: v - before.get(k, 0) for k, v in counters().items() if v != before.get(k, 0)}
+    log.info("counters of the trace in %s: %s", logdir, counted)
     if dev.type == "cuda":
         check_complete(prof.events(), f"the trace in {logdir}", WINDOW_BURST)
 
