@@ -18,7 +18,8 @@ import torch
 from stutter_tpu_torch.config import DenoiseConfig
 from stutter_tpu_torch.device import resolve_device
 from stutter_tpu_torch.ops.consts import F32_TINY
-from stutter_tpu_torch.ops.frontend import DEFAULT_BUCKETS, count_batch, pad_batch, pad_to_bucket
+from stutter_tpu_torch.ops.frontend import (DEFAULT_BUCKETS, STAGES, count_batch, pad_batch,
+                                            pad_to_bucket)
 from stutter_tpu_torch.ops.spectral_gate import spectral_gate
 from stutter_tpu_torch.utils.profiling import span, tracing
 
@@ -59,12 +60,14 @@ def denoise_clips(
     device: torch.device | str = "cuda",
 ) -> list[np.ndarray]:
     """Host wrapper: denoise a list of 1-D clips, grouped into sample buckets,
-    on `device`.  Traced, the call is the span `denoise_clips` and each
-    batch `denoise_clips.batch`, whose leaves are pad, h2d, `denoise_batch`
-    (the launches), d2h and unpad (ops.frontend.count_batch counts it)."""
+    on `device`.  Batches are padded into a stage of ops.frontend.STAGES,
+    page-locked for a CUDA device.  Traced, the call is the span
+    `denoise_clips` and each batch `denoise_clips.batch`, whose leaves are
+    pad, h2d, `denoise_batch` (the launches), d2h and unpad
+    (ops.frontend.count_batch counts it)."""
     device = resolve_device(device)
     out: list[np.ndarray | None] = [None] * len(clips)
-    with span("denoise_clips"):
+    with span("denoise_clips"), STAGES.checkout(device.type == "cuda") as stage:
         by_bucket: dict[int, list[int]] = {}
         for i, y in enumerate(clips):
             by_bucket.setdefault(pad_to_bucket(len(y), DEFAULT_BUCKETS), []).append(i)
@@ -73,9 +76,9 @@ def denoise_clips(
                 chunk = idxs[s : s + batch_size]
                 with span("denoise_clips.batch"):
                     with span("denoise_clips.pad"):
-                        batch, lens = pad_batch(clips, chunk, bucket, len(chunk))
+                        batch, lens = pad_batch(clips, chunk, bucket, len(chunk), stage)
                     with span("denoise_clips.h2d"):
-                        audio = torch.from_numpy(batch).to(device)
+                        audio = batch.to(device)
                         lengths = torch.from_numpy(lens).to(device)
                     with span("denoise_batch"):
                         cleaned = denoise_batch(audio, lengths, cfg)

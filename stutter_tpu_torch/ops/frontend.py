@@ -16,7 +16,9 @@ mel-output mode.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -86,29 +88,80 @@ def pad_to_bucket(n: int, buckets=DEFAULT_BUCKETS) -> int:
     return buckets[-1]
 
 
-def pad_batch(clips: list[np.ndarray], idxs: list[int], bucket: int,
-              rows: int) -> tuple[np.ndarray, np.ndarray]:
+class HostStage:
+    """A flat float32 host buffer that padded batches are written into and
+    uploaded from, grown to the largest batch asked of it and then reused,
+    so a batch touches no freshly mapped pages.  Page-locked when `pinned`
+    (a batch bound for a CUDA device): the upload is then one DMA from it,
+    not a copy through a pageable bounce buffer."""
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self.buf = torch.empty(0, dtype=torch.float32)
+
+    def take(self, rows: int, n: int) -> torch.Tensor:
+        """A [rows, n] view of the buffer, holding whatever was last there."""
+        if self.buf.numel() < rows * n:
+            self.buf = torch.empty(0, dtype=torch.float32)  # free the old block first
+            self.buf = torch.empty(rows * n, dtype=torch.float32, pin_memory=self.pinned)
+        return self.buf[: rows * n].view(rows, n)
+
+
+class StagePool:
+    """HostStages handed out one a call under a lock, so threads that pad
+    at once never share one (the service's handler threads call the corpus
+    path); a call that finds none free makes one, and gives it back at its
+    end."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.free: dict[bool, list[HostStage]] = {False: [], True: []}
+
+    @contextlib.contextmanager
+    def checkout(self, pinned: bool):
+        with self.lock:
+            stage = self.free[pinned].pop() if self.free[pinned] else HostStage(pinned)
+        try:
+            yield stage
+        finally:
+            with self.lock:
+                self.free[pinned].append(stage)
+
+
+STAGES = StagePool()
+
+
+def pad_batch(clips: list[np.ndarray], idxs: list[int], bucket: int, rows: int,
+              stage: HostStage) -> tuple[torch.Tensor, np.ndarray]:
     """The clips `idxs`, each cut to `bucket` samples, zero-padded into
-    rows 0..len(idxs)-1 of a [rows, bucket] float32 batch -> (batch,
-    lengths [rows] int32, 0 for the rows past the clips)."""
-    batch = np.zeros((rows, bucket), np.float32)
+    rows 0..len(idxs)-1 of a [rows, bucket] float32 batch in `stage`'s
+    memory -> (batch, lengths [rows] int32, 0 for the rows past the clips).
+    Every element is written, since the stage holds an earlier batch: each
+    row its clip and then zeros, the rows past the clips zeros."""
+    batch = stage.take(rows, bucket)
+    a = batch.numpy()
     lens = np.zeros(rows, np.int32)
     for j, i in enumerate(idxs):
         y = clips[i][:bucket]
-        batch[j, : len(y)] = y
+        a[j, : len(y)] = y
+        a[j, len(y) :] = 0.0
         lens[j] = len(y)
+    a[len(idxs) :] = 0.0
     return batch, lens
 
 
-def count_batch(owner: str, batch: np.ndarray, lens: np.ndarray, d2h_bytes: int) -> None:
+def count_batch(owner: str, batch: torch.Tensor, lens: np.ndarray, d2h_bytes: int) -> None:
     """The corpus path's counters for one padded batch of `owner` (the
     profiling module's counters "<owner>.<counter>"): batches, the samples
     sent (pad_samples) and the clips' own (valid_samples), the bytes
-    uploaded (the batch and its lengths) and read back."""
+    uploaded (the batch and its lengths), of them the batch's when it
+    went from page-locked memory (pinned_bytes), and the bytes read back."""
+    nbytes = batch.numel() * batch.element_size()
     count(f"{owner}.batches", 1)
-    count(f"{owner}.pad_samples", batch.size)
+    count(f"{owner}.pad_samples", batch.numel())
     count(f"{owner}.valid_samples", int(lens.sum()))
-    count(f"{owner}.h2d_bytes", batch.nbytes + lens.nbytes)
+    count(f"{owner}.h2d_bytes", nbytes + lens.nbytes)
+    count(f"{owner}.pinned_bytes", nbytes if batch.is_pinned() else 0)
     count(f"{owner}.d2h_bytes", d2h_bytes)
 
 
@@ -153,13 +206,15 @@ def run_bucketed(
     restore the order.  The mesh is `mesh`, or every visible GPU for an
     unindexed `cuda` and the one device asked for otherwise
     (parallel.mesh.resolve_mesh); a batch is padded to a multiple of its
-    size with zero-length rows, whose outputs are dropped.  Traced, the
-    call is the span `run_bucketed` and each batch `run_bucketed.batch`,
-    whose leaves are pad, h2d, launch, d2h and scatter (count_batch counts
-    it)."""
+    size with zero-length rows, whose outputs are dropped.  Batches are
+    padded into a stage of STAGES, page-locked for a CUDA mesh.  Traced,
+    the call is the span `run_bucketed` and each batch
+    `run_bucketed.batch`, whose leaves are pad, h2d, launch, d2h and
+    scatter (count_batch counts it)."""
     mesh = resolve_mesh(mesh, device)
     out = np.zeros((len(clips), out_dim), np.float32)
-    with span("run_bucketed"):
+    pinned = any(d.type == "cuda" for d in mesh)
+    with span("run_bucketed"), STAGES.checkout(pinned) as stage:
         by_bucket: dict[int, list[int]] = {}
         for i, y in enumerate(clips):
             by_bucket.setdefault(pad_to_bucket(len(y), buckets), []).append(i)
@@ -169,7 +224,7 @@ def run_bucketed(
                 with span("run_bucketed.batch"):
                     with span("run_bucketed.pad"):
                         rows = -(-len(chunk) // len(mesh)) * len(mesh)
-                        batch, lens = pad_batch(clips, chunk, bucket, rows)
+                        batch, lens = pad_batch(clips, chunk, bucket, rows, stage)
                     with span("run_bucketed.h2d"):
                         shards = shard_batch(mesh, batch, lens)
                     with span("run_bucketed.launch"):

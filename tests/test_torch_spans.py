@@ -150,6 +150,8 @@ def test_corpus_path_counters_equal_a_hand_count(owner, mesh, tmp_path):
                        f"{owner}.d2h_bytes": d2h}
     assert counted[f"{owner}.valid_samples"] == sum(min(len(y), DEFAULT_BUCKETS[-1])
                                                     for y in clips)
+    # on the CPU nothing goes from page-locked memory: counted, and 0
+    assert P.counters()[f"{owner}.pinned_bytes"] == 0
     if owner == "denoise_clips":
         assert len(got) == len(plain) and all(np.array_equal(a, b) for a, b in zip(got, plain))
         assert all(g.dtype == p.dtype for g, p in zip(got, plain))
