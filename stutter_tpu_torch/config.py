@@ -129,6 +129,52 @@ FEATURES_334 = FeatureConfig(
 
 
 @dataclasses.dataclass(frozen=True)
+class WavLMConfig:
+    """A WavLM encoder (models/wavlm.py), its widths under the names of
+    microsoft/wavlm-large's config.json (the defaults: WavLM-Large, with
+    feat_extract_norm "layer", conv_bias false, do_stable_layer_norm true).
+    The weights are the .npz `weights` (persist.save_wavlm, the checkpoint's
+    parameter names) or, without one, drawn from `seed` on the device."""
+
+    conv_dim: Tuple[int, ...] = (512,) * 7
+    conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    hidden_size: int = 1024
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    intermediate_size: int = 4096
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    num_buckets: int = 320
+    max_bucket_distance: int = 800
+    layer_norm_eps: float = 1e-5
+    seed: int = 0
+    weights: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbeddingFeatureConfig(FeatureConfig):
+    """Features that are a speech encoder's pooled embedding (the masked
+    mean of its last hidden state over a clip's frames) followed by the
+    text placeholders: 1024 + 5 for WavLM-Large.  The front end's
+    sample_rate is the encoder's input rate; its other fields go unused."""
+
+    encoder: WavLMConfig = WavLMConfig()
+
+    @property
+    def audio_feature_len(self) -> int:
+        return self.encoder.hidden_size
+
+    def feature_names(self) -> list[str]:
+        return [f"embed_{i}" for i in range(self.encoder.hidden_size)] + [
+            "transcript_length", "word_count", "repetition_count", "repetition_ratio",
+            "unique_ratio"][: self.text_feature_len]
+
+
+FEATURES_WAVLM = EmbeddingFeatureConfig()
+
+
+@dataclasses.dataclass(frozen=True)
 class DenoiseConfig:
     """Non-stationary spectral-gating denoiser (noisereduce-equivalent).
 

@@ -242,7 +242,14 @@ def batch_extractor_for(feature_cfg):
     """`batch_fn(audio [B, N], lengths [B]) -> [B, D]` for a FeatureConfig:
     the canonical 149-dim contract, or the 334-variant (main.py geometry,
     fixed semantics; its computed length is 286) when the config includes
-    spectral contrast or the scalars."""
+    spectral contrast or the scalars, or, for an EmbeddingFeatureConfig,
+    its encoder's pooled embedding and the text placeholders
+    (models/wavlm.batch_fn_for: the weights one copy per device)."""
+    encoder = getattr(feature_cfg, "encoder", None)
+    if encoder is not None:
+        from stutter_tpu_torch.models.wavlm import batch_fn_for
+
+        return batch_fn_for(encoder, feature_cfg.text_feature_len)
     fe = feature_cfg.frontend
     if feature_cfg.include_contrast or feature_cfg.include_scalars:
         from stutter_tpu_torch.ops.frontend334 import extract_features_334_batch as extract

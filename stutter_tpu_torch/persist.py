@@ -8,6 +8,8 @@ there serve here unchanged:
   model_<arch>.npz            a sequence head's params (flattened names)
   model_<arch>_norm.npz       its per-feature mean / std
   model_<arch>.json           {"arch", "classes", "kind"}
+  <name>.npz                  a WavLM encoder's weights under the
+                              checkpoint's parameter names (save_wavlm)
 and, where sklearn and joblib are installed, the reference's pickles
 (scaler_after.pkl, label_encoder.pkl, model_rf.pkl).
 """
@@ -21,6 +23,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from stutter_tpu_torch.device import resolve_device
 from stutter_tpu_torch.models.mlp import SeedMLP
 from stutter_tpu_torch.models.scaler import LabelEncoder, StandardScaler
 
@@ -83,6 +86,29 @@ def load_mlp(path: str | Path, device: torch.device | str = "cuda") -> SeedMLP:
     if model.n_seeds != meta["n_seeds"] or widths != [*meta["hidden"], meta["n_classes"]]:
         raise ValueError(f"{path}: params {widths} x {model.n_seeds} seeds disagree with {meta}")
     return model
+
+
+def save_wavlm(path: str | Path, params: dict) -> None:
+    """A WavLM encoder's weights (models/wavlm.py: name -> tensor, the
+    checkpoint's names) as one .npz, float32."""
+    np.savez(str(path), **{k: v.detach().cpu().numpy().astype(np.float32)
+                           for k, v in params.items()})
+
+
+def load_wavlm(path: str | Path, cfg, device: torch.device | str = "cuda") -> dict:
+    """The .npz of save_wavlm -> {name: tensor on `device`}; raises unless
+    it holds exactly the parameters of `cfg` (a WavLMConfig), shape for
+    shape."""
+    from stutter_tpu_torch.models.wavlm import param_shapes
+
+    device = resolve_device(device)
+    shapes = param_shapes(cfg)
+    with np.load(str(path)) as z:
+        got = {k: tuple(z[k].shape) for k in z.files}
+        if got != shapes:
+            diff = sorted(set(got.items()) ^ set(shapes.items()))[:4]
+            raise ValueError(f"{path}: parameters differ from the config's, e.g. {diff}")
+        return {k: torch.as_tensor(z[k], dtype=torch.float32, device=device) for k in shapes}
 
 
 def save_scaler(path: str | Path, scaler: StandardScaler) -> None:
