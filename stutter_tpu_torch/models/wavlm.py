@@ -59,9 +59,12 @@ from stutter_tpu_torch.utils.profiling import count, span, tracing
 CONV_LN_EPS = 1e-5  # the feature encoder's LayerNorms (nn.LayerNorm's default)
 INPUT_EPS = 1e-7  # the input normalisation's (Wav2Vec2FeatureExtractor)
 GATE_DIM = 8  # gru_rel_pos_linear's outputs: 2 groups of 4
+# The longest clip the corpus path sends (ops/frontend's largest bucket,
+# 10.24 s): the position-bias table is built once at its frames
+LONGEST = 163840
 # Samples an encode call takes at most: a batch of more rows x samples is
 # encoded in row chunks (64 clips of the 10.24 s bucket are one call)
-SAMPLE_BUDGET = 64 * 163840
+SAMPLE_BUDGET = 64 * LONGEST
 
 LAYER = "encoder.layers.{}."
 
@@ -246,9 +249,14 @@ def _bucket_table(T: int, num_buckets: int, max_distance: int, device) -> torch.
 
 
 def position_bias(p: dict, T: int, cfg: WavLMConfig, device) -> torch.Tensor:
-    """Layer 0's relative position bias [heads, T, T]."""
-    table = _bucket_table(T, cfg.num_buckets, cfg.max_bucket_distance, torch.device(device))
-    return p[LAYER.format(0) + "attention.rel_attn_embed.weight"][table].permute(2, 0, 1)
+    """Layer 0's relative position bias [heads, T, T], from the [:T, :T]
+    corner of one bucket table a device, built at the frames of LONGEST
+    (or at T, past them): a bucket depends only on key minus query, so the
+    corner is relative_buckets(T), and a batch of a new length costs no
+    table of its own."""
+    rows = max(T, frame_lengths(LONGEST, cfg))
+    table = _bucket_table(rows, cfg.num_buckets, cfg.max_bucket_distance, torch.device(device))
+    return p[LAYER.format(0) + "attention.rel_attn_embed.weight"][table[:T, :T]].permute(2, 0, 1)
 
 
 def bias_gate(p: dict, i: int, x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -401,7 +409,9 @@ def batch_fn_for(cfg: WavLMConfig, text_len: int = 5):
     """`batch_fn(audio [B, N], lengths [B]) -> [B, hidden_size + text_len]`
     on audio's device: the embeddings (encode, with that device's weights;
     in row chunks of at most SAMPLE_BUDGET samples), then text_len zero
-    placeholders."""
+    placeholders.  It carries the feature encoder's stride in samples
+    (`frame_stride`), by which ops/frontend.run_bucketed pads its batches
+    only to their longest clip: a clip's embedding does not depend on N."""
     enc = encoder_for(cfg)
 
     def batch_fn(audio, lengths):
@@ -413,4 +423,5 @@ def batch_fn_for(cfg: WavLMConfig, text_len: int = 5):
         emb = parts[0] if len(parts) == 1 else torch.cat(parts)
         return torch.cat([emb, emb.new_zeros(B, text_len)], dim=1)
 
+    batch_fn.frame_stride = math.prod(cfg.conv_stride)
     return batch_fn

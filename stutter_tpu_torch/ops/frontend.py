@@ -88,6 +88,35 @@ def pad_to_bucket(n: int, buckets=DEFAULT_BUCKETS) -> int:
     return buckets[-1]
 
 
+def bucket_groups(lengths, batch_size: int, buckets=DEFAULT_BUCKETS) -> list[tuple[int, list[int]]]:
+    """[(N, idxs), ...]: the clips of `lengths` samples grouped by sample
+    bucket (pad_to_bucket), the buckets in the order they first come up,
+    each bucket's clips in input order and in chunks of batch_size, N the
+    bucket."""
+    by_bucket: dict[int, list[int]] = {}
+    for i, n in enumerate(lengths):
+        by_bucket.setdefault(pad_to_bucket(n, buckets), []).append(i)
+    return [(b, idxs[s : s + batch_size]) for b, idxs in by_bucket.items()
+            for s in range(0, len(idxs), batch_size)]
+
+
+def fitted_groups(lengths, batch_size: int, step: int, cap: int) -> list[tuple[int, list[int]]]:
+    """[(N, idxs), ...]: the clips of `lengths` samples, each cut to `cap`,
+    in order of length (a stable sort) and in consecutive chunks of
+    batch_size, N the chunk's longest clip rounded up to a multiple of
+    `step` (at least one step, at most cap).  So N holds every sample each
+    clip of the chunk keeps, and the padding is what the rounding and the
+    spread of lengths inside one chunk leave."""
+    cut = np.minimum(np.asarray(lengths, np.int64), cap)
+    order = np.argsort(cut, kind="stable")
+    out = []
+    for s in range(0, len(order), batch_size):
+        idxs = order[s : s + batch_size].tolist()
+        longest = int(cut[idxs].max())
+        out.append((min(cap, max(step, -(-longest // step) * step)), idxs))
+    return out
+
+
 class HostStage:
     """A flat float32 host buffer that padded batches are written into and
     uploaded from, grown to the largest batch asked of it and then reused,
@@ -201,40 +230,45 @@ def run_bucketed(
     device: torch.device | str = "cuda",
     mesh=None,
 ) -> np.ndarray:
-    """Group clips by sample bucket, pad, run `batch_fn(audio [B, N],
-    lengths [B]) -> [B, out_dim]` over the mesh (as sharded_batch_fn), and
-    restore the order.  The mesh is `mesh`, or every visible GPU for an
-    unindexed `cuda` and the one device asked for otherwise
+    """Group clips into batches, pad, run `batch_fn(audio [B, N], lengths
+    [B]) -> [B, out_dim]` over the mesh (as sharded_batch_fn), and restore
+    the order.  A `batch_fn` that carries a `frame_stride` (an encoder whose
+    output for a clip does not depend on N: models/wavlm.batch_fn_for) gets
+    fitted_groups, the clips by length, each batch padded only to its
+    longest clip in whole strides; every other gets bucket_groups over
+    `buckets`.  The mesh is `mesh`, or every visible GPU for an unindexed
+    `cuda` and the one device asked for otherwise
     (parallel.mesh.resolve_mesh); a batch is padded to a multiple of its
     size with zero-length rows, whose outputs are dropped.  Batches are
     padded into a stage of STAGES, page-locked for a CUDA mesh.  Traced,
     the call is the span `run_bucketed` and each batch
     `run_bucketed.batch`, whose leaves are pad, h2d, launch, d2h and
-    scatter (count_batch counts it)."""
+    scatter (count_batch counts it, and `run_bucketed.fitted_batches` a
+    fitted one)."""
     mesh = resolve_mesh(mesh, device)
     out = np.zeros((len(clips), out_dim), np.float32)
     pinned = any(d.type == "cuda" for d in mesh)
+    step = getattr(batch_fn, "frame_stride", None)
     with span("run_bucketed"), STAGES.checkout(pinned) as stage:
-        by_bucket: dict[int, list[int]] = {}
-        for i, y in enumerate(clips):
-            by_bucket.setdefault(pad_to_bucket(len(y), buckets), []).append(i)
-        for bucket, idxs in by_bucket.items():
-            for s in range(0, len(idxs), batch_size):
-                chunk = idxs[s : s + batch_size]
-                with span("run_bucketed.batch"):
-                    with span("run_bucketed.pad"):
-                        rows = -(-len(chunk) // len(mesh)) * len(mesh)
-                        batch, lens = pad_batch(clips, chunk, bucket, rows, stage)
-                    with span("run_bucketed.h2d"):
-                        shards = shard_batch(mesh, batch, lens)
-                    with span("run_bucketed.launch"):
-                        outs = launch_shards(batch_fn, shards)
-                    with span("run_bucketed.d2h"):
-                        got = gather(outs)
-                    with span("run_bucketed.scatter"):
-                        out[chunk] = got[: len(chunk)]
-                    if tracing():
-                        count_batch("run_bucketed", batch, lens, got.nbytes)
+        lengths = [len(y) for y in clips]
+        groups = (fitted_groups(lengths, batch_size, step, buckets[-1]) if step
+                  else bucket_groups(lengths, batch_size, buckets))
+        for bucket, chunk in groups:
+            with span("run_bucketed.batch"):
+                with span("run_bucketed.pad"):
+                    rows = -(-len(chunk) // len(mesh)) * len(mesh)
+                    batch, lens = pad_batch(clips, chunk, bucket, rows, stage)
+                with span("run_bucketed.h2d"):
+                    shards = shard_batch(mesh, batch, lens)
+                with span("run_bucketed.launch"):
+                    outs = launch_shards(batch_fn, shards)
+                with span("run_bucketed.d2h"):
+                    got = gather(outs)
+                with span("run_bucketed.scatter"):
+                    out[chunk] = got[: len(chunk)]
+                if tracing():
+                    count_batch("run_bucketed", batch, lens, got.nbytes)
+                    count("run_bucketed.fitted_batches", 1 if step else 0)
     return out
 
 

@@ -22,7 +22,8 @@ from torch.profiler import ProfilerActivity, profile
 import ref_wavlm as R
 from stutter_tpu_torch.config import EmbeddingFeatureConfig, PipelineConfig, WavLMConfig
 from stutter_tpu_torch.models import wavlm as W
-from stutter_tpu_torch.ops.frontend import DEFAULT_BUCKETS, extract_features_numpy, pad_to_bucket
+from stutter_tpu_torch.ops.frontend import (DEFAULT_BUCKETS, extract_features_numpy,
+                                             fitted_groups, pad_to_bucket)
 from stutter_tpu_torch.utils import profiling as P
 
 REPO = Path(__file__).resolve().parent.parent
@@ -101,7 +102,8 @@ def test_embedding_is_the_same_alone_and_inside_a_padded_batch(small):
 def test_a_batch_over_the_sample_budget_is_encoded_in_row_chunks(small, monkeypatch):
     """A batch of more samples than SAMPLE_BUDGET (extract_corpus's 256
     rows of the largest bucket) is encoded in row chunks, one encode call
-    each, and gives what one call gives."""
+    each, and gives what one call gives.  The batch is fitted to its
+    longest clip, 24,000 samples (75 strides of 320), so 2 rows a call."""
     fc, _ = small
     clips = _clips((12000, 24000, 9000, 20000, 16000))
     whole = extract_features_numpy(clips, fc, batch_size=5, device="cpu")
@@ -110,7 +112,7 @@ def test_a_batch_over_the_sample_budget_is_encoded_in_row_chunks(small, monkeypa
     monkeypatch.setattr(W, "SAMPLE_BUDGET", 2 * 24576)
     monkeypatch.setattr(W, "encode", lambda p, a, n, c: calls.append(a.shape) or orig(p, a, n, c))
     chunked = extract_features_numpy(clips, fc, batch_size=5, device="cpu")
-    assert calls == [(2, 24576), (2, 24576), (1, 24576)]
+    assert calls == [(2, 24000), (2, 24000), (1, 24000)]
     np.testing.assert_allclose(chunked, whole, rtol=0, atol=1e-5)
 
 
@@ -373,7 +375,8 @@ def test_predictor_runs_the_encoder_features(small):
 def test_traced_extraction_opens_the_wavlm_spans_and_counts_the_shapes(small, tmp_path):
     """Under a profiler, extract_features_numpy's encoder opens one
     `stp.wavlm.encode` a batch holding a `featenc`, a `pos_conv` and one
-    `attention` a layer, and the counters add up to the batches' shapes:
+    `attention` a layer, and the counters add up to the batches' shapes
+    (fitted_groups': the clips by length, each batch fitted to its longest):
     sum T_i and B T_pad frames, sum T_i^2 and B T_pad^2 attention pairs."""
     fc, _ = small
     clips = _clips((9000, 24576, 30000, 50000, 12000))
@@ -388,11 +391,9 @@ def test_traced_extraction_opens_the_wavlm_spans_and_counts_the_shapes(small, tm
     mem = P.spans()[before_s:]
     added = {k: v - before_c.get(k, 0) for k, v in P.counters().items()
              if k.startswith("wavlm.") and v != before_c.get(k, 0)}
-    by = {}
-    for y in clips:
-        by.setdefault(pad_to_bucket(len(y)), []).append(len(y))
-    batches = [(b, c[s : s + 2]) for b, c in by.items() for s in range(0, len(c), 2)]
-    T = {b: W.frame_lengths(b, SMALL) for b in by}
+    batches = [(N, [len(clips[i]) for i in idxs])
+               for N, idxs in fitted_groups([len(y) for y in clips], 2, 320, DEFAULT_BUCKETS[-1])]
+    T = {b: W.frame_lengths(b, SMALL) for b, _ in batches}
     t = [W.frame_lengths(n, SMALL) for y in clips for n in [len(y)]]
     assert added == {"wavlm.batches": len(batches),
                      "wavlm.valid_frames": sum(t),
@@ -407,3 +408,57 @@ def test_traced_extraction_opens_the_wavlm_spans_and_counts_the_shapes(small, tm
     inner = [s for s in mem if s.name in ("wavlm.featenc", "wavlm.pos_conv", "wavlm.attention")]
     assert all(any(e.start_ns <= s.start_ns and s.end_ns <= e.end_ns for e in enc) for s in inner)
     assert os.path.getsize(path) > 0
+
+
+def test_fitted_batches_give_each_clip_alone_and_the_buckets_rows(small):
+    """run_bucketed with the encoder's batch_fn (which carries its stride,
+    320 samples) over 20 clips of mixed lengths, one past the largest
+    bucket and one too short to give a frame, in batches of 4: every batch
+    is fitted to its longest clip (counted as fitted under a profiler), and
+    each clip's row is encode of that clip alone, unpadded and cut to the
+    cap, and the row the DEFAULT_BUCKETS batches give."""
+    from stutter_tpu_torch.ops.frontend import run_bucketed
+
+    fc, p = small
+    rng = np.random.RandomState(3)
+    lengths = [170000, 300, *rng.randint(1000, 160000, 18)]
+    clips = _clips(tuple(int(n) for n in lengths))
+    fn = W.batch_fn_for(SMALL)
+    assert fn.frame_stride == 320
+    before = P.counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        fitted = run_bucketed(clips, fn, 69, batch_size=4, device="cpu")
+    added = {k: v - before.get(k, 0) for k, v in P.counters().items()}
+    assert added["run_bucketed.fitted_batches"] == added["run_bucketed.batches"] == 5
+    assert added["run_bucketed.pad_samples"] == 4 * sum(
+        N for N, _ in fitted_groups(lengths, 4, 320, DEFAULT_BUCKETS[-1]))
+    bucketed = run_bucketed(clips, lambda a, n: fn(a, n), 69, batch_size=4, device="cpu")
+    cap = DEFAULT_BUCKETS[-1]
+    with torch.no_grad():
+        alone = [W.encode(p, torch.from_numpy(y[:cap])[None], torch.tensor([len(y[:cap])]),
+                          SMALL)[0].numpy() for y in clips]
+    assert not alone[1].any() and not fitted[1].any()
+    assert max(_gap(x[:64], a) for x, a in zip(fitted, alone)) < TOL
+    assert max(_gap(x, b) for x, b in zip(fitted, bucketed)) < TOL
+
+
+@pytest.mark.parametrize("T", [1, 2, 45, 311, 511])
+def test_position_bias_is_a_corner_of_one_table(T):
+    """position_bias slices the [:T, :T] corner of one bucket table a
+    device, built at the frames of the longest clip (511), and equals the
+    bias gathered from relative_buckets(T)."""
+    p = _params(SMALL)
+    emb = p[W.LAYER.format(0) + "attention.rel_attn_embed.weight"]
+    W._bucket_table.cache_clear()
+    try:
+        got = W.position_bias(p, T, SMALL, "cpu")
+        W.position_bias(p, 45, SMALL, "cpu")
+        assert W._bucket_table.cache_info().currsize == 1
+        table = W._bucket_table(W.frame_lengths(W.LONGEST, SMALL), SMALL.num_buckets,
+                                SMALL.max_bucket_distance, torch.device("cpu"))
+        assert table.shape == (511, 511)
+        want = W.relative_buckets(T, SMALL.num_buckets, SMALL.max_bucket_distance)
+        assert torch.equal(table[:T, :T], want)
+        assert torch.equal(got, emb[want].permute(2, 0, 1))
+    finally:
+        W._bucket_table.cache_clear()
