@@ -18,10 +18,9 @@ import torch
 from stutter_tpu_torch.config import DenoiseConfig
 from stutter_tpu_torch.device import resolve_device
 from stutter_tpu_torch.ops.consts import F32_TINY
-from stutter_tpu_torch.ops.frontend import (DEFAULT_BUCKETS, STAGES, count_batch, pad_batch,
-                                            pad_to_bucket)
+from stutter_tpu_torch.ops.frontend import bucket_groups, host_batches
 from stutter_tpu_torch.ops.spectral_gate import spectral_gate
-from stutter_tpu_torch.utils.profiling import span, tracing
+from stutter_tpu_torch.utils.profiling import span
 
 PAD = 30000  # noisereduce chunk padding (samples)
 
@@ -59,34 +58,18 @@ def denoise_clips(
     batch_size: int = 64,
     device: torch.device | str = "cuda",
 ) -> list[np.ndarray]:
-    """Host wrapper: denoise a list of 1-D clips, grouped into sample buckets,
-    on `device`.  Batches are padded into a stage of ops.frontend.STAGES,
-    page-locked for a CUDA device.  Traced, the call is the span
-    `denoise_clips` and each batch `denoise_clips.batch`, whose leaves are
-    pad, h2d, `denoise_batch` (the launches), d2h and unpad
-    (ops.frontend.count_batch counts it)."""
+    """Host wrapper: denoise a list of 1-D clips, in the batches of
+    ops.frontend.bucket_groups, on `device` (ops.frontend.host_batches).
+    Traced, the call is the span `denoise_clips`, each batch's leaves pad,
+    h2d, `denoise_batch` (the launches), d2h and unpad."""
     device = resolve_device(device)
     out: list[np.ndarray | None] = [None] * len(clips)
-    with span("denoise_clips"), STAGES.checkout(device.type == "cuda") as stage:
-        by_bucket: dict[int, list[int]] = {}
-        for i, y in enumerate(clips):
-            by_bucket.setdefault(pad_to_bucket(len(y), DEFAULT_BUCKETS), []).append(i)
-        for bucket, idxs in by_bucket.items():
-            for s in range(0, len(idxs), batch_size):
-                chunk = idxs[s : s + batch_size]
-                with span("denoise_clips.batch"):
-                    with span("denoise_clips.pad"):
-                        batch, lens = pad_batch(clips, chunk, bucket, len(chunk), stage)
-                    with span("denoise_clips.h2d"):
-                        audio = batch.to(device)
-                        lengths = torch.from_numpy(lens).to(device)
-                    with span("denoise_batch"):
-                        cleaned = denoise_batch(audio, lengths, cfg)
-                    with span("denoise_clips.d2h"):
-                        cleaned = cleaned.cpu().numpy()
-                    with span("denoise_clips.unpad"):
-                        for j, i in enumerate(chunk):
-                            out[i] = cleaned[j, : lens[j]]
-                    if tracing():
-                        count_batch("denoise_clips", batch, lens, cleaned.nbytes)
+    groups = bucket_groups([len(y) for y in clips], batch_size)
+    # denoise_batch is looked up at each call, so a replacement of it is what runs
+    for chunk, lens, cleaned in host_batches("denoise_clips", clips, groups,
+                                             lambda a, n: denoise_batch(a, n, cfg), (device,),
+                                             "denoise_batch"):
+        with span("denoise_clips.unpad"):
+            for j, i in enumerate(chunk):
+                out[i] = cleaned[j, : lens[j]]
     return out  # type: ignore[return-value]

@@ -179,19 +179,18 @@ def pad_batch(clips: list[np.ndarray], idxs: list[int], bucket: int, rows: int,
     return batch, lens
 
 
-def count_batch(owner: str, batch: torch.Tensor, lens: np.ndarray, d2h_bytes: int) -> None:
-    """The corpus path's counters for one padded batch of `owner` (the
+def count_batch(owner: str, batch: torch.Tensor, lens: np.ndarray) -> None:
+    """The host batch loop's counters for one padded batch of `owner` (the
     profiling module's counters "<owner>.<counter>"): batches, the samples
     sent (pad_samples) and the clips' own (valid_samples), the bytes
-    uploaded (the batch and its lengths), of them the batch's when it
-    went from page-locked memory (pinned_bytes), and the bytes read back."""
+    uploaded (the batch and its lengths), and of them the batch's when it
+    went from page-locked memory (pinned_bytes)."""
     nbytes = batch.numel() * batch.element_size()
     count(f"{owner}.batches", 1)
     count(f"{owner}.pad_samples", batch.numel())
     count(f"{owner}.valid_samples", int(lens.sum()))
     count(f"{owner}.h2d_bytes", nbytes + lens.nbytes)
     count(f"{owner}.pinned_bytes", nbytes if batch.is_pinned() else 0)
-    count(f"{owner}.d2h_bytes", d2h_bytes)
 
 
 def launch_shards(batch_fn, shards) -> list[torch.Tensor]:
@@ -202,23 +201,42 @@ def launch_shards(batch_fn, shards) -> list[torch.Tensor]:
 
 
 def gather(outs: list[torch.Tensor]) -> np.ndarray:
-    """The shards' outputs read back and joined in mesh order."""
+    """The shards' outputs read back and joined in mesh order; a mesh of
+    one is its shard's read-back, with no joining copy."""
+    if len(outs) == 1:
+        return outs[0].cpu().numpy()
     return torch.cat([o.cpu() for o in outs]).numpy()
 
 
-def sharded_batch_fn(batch_fn, mesh):
-    """`batch_fn(audio [B, N], lengths [B]) -> [B, D]` over the mesh ->
-    `run(audio, lengths) -> numpy [B, D]`: the batch (numpy or tensors, B a
-    multiple of the mesh's size) cut into one contiguous shard per device
-    (parallel.mesh.shard_batch), every shard uploaded and then launched
-    before any is read back, so the devices run at once, and the results
-    gathered in mesh order.  Clips are independent, so nothing crosses
-    between shards; a mesh of one is the batch on its device."""
-
-    def run(audio, lengths) -> np.ndarray:
-        return gather(launch_shards(batch_fn, shard_batch(mesh, audio, lengths)))
-
-    return run
+def host_batches(owner: str, clips: list[np.ndarray], groups, batch_fn, mesh,
+                 launch_span: str):
+    """The host batch loop: for each (N, idxs) of `groups`, the clips
+    `idxs` padded into a [rows, N] batch (pad_batch; rows rounded up to
+    the mesh's size with zero-length rows) in a stage of STAGES,
+    page-locked when any mesh device is CUDA, cut into one contiguous
+    shard per device and uploaded (parallel.mesh.shard_batch), `batch_fn
+    (audio, lengths)` launched on every shard before any is read back, so
+    the devices run at once, and the results gathered in mesh order ->
+    yields (idxs, lengths [rows], host output [rows, ...]).  Traced, the
+    loop is the span `owner` and each batch `<owner>.batch`, whose leaves
+    are pad, h2d, `launch_span`, d2h and what the caller does with the
+    yield (count_batch counts it)."""
+    pinned = any(d.type == "cuda" for d in mesh)
+    with span(owner), STAGES.checkout(pinned) as stage:
+        for bucket, chunk in groups:
+            with span(f"{owner}.batch"):
+                with span(f"{owner}.pad"):
+                    rows = -(-len(chunk) // len(mesh)) * len(mesh)
+                    batch, lens = pad_batch(clips, chunk, bucket, rows, stage)
+                with span(f"{owner}.h2d"):
+                    shards = shard_batch(mesh, batch, lens)
+                with span(launch_span):
+                    outs = launch_shards(batch_fn, shards)
+                with span(f"{owner}.d2h"):
+                    host_out = gather(outs)
+                if tracing():
+                    count_batch(owner, batch, lens)
+                yield chunk, lens, host_out
 
 
 def run_bucketed(
@@ -230,45 +248,28 @@ def run_bucketed(
     device: torch.device | str = "cuda",
     mesh=None,
 ) -> np.ndarray:
-    """Group clips into batches, pad, run `batch_fn(audio [B, N], lengths
-    [B]) -> [B, out_dim]` over the mesh (as sharded_batch_fn), and restore
-    the order.  A `batch_fn` that carries a `frame_stride` (an encoder whose
+    """Group clips into batches, run `batch_fn(audio [B, N], lengths [B])
+    -> [B, out_dim]` on them over the mesh (host_batches), and restore the
+    order.  A `batch_fn` that carries a `frame_stride` (an encoder whose
     output for a clip does not depend on N: models/wavlm.batch_fn_for) gets
     fitted_groups, the clips by length, each batch padded only to its
     longest clip in whole strides; every other gets bucket_groups over
     `buckets`.  The mesh is `mesh`, or every visible GPU for an unindexed
     `cuda` and the one device asked for otherwise
-    (parallel.mesh.resolve_mesh); a batch is padded to a multiple of its
-    size with zero-length rows, whose outputs are dropped.  Batches are
-    padded into a stage of STAGES, page-locked for a CUDA mesh.  Traced,
-    the call is the span `run_bucketed` and each batch
-    `run_bucketed.batch`, whose leaves are pad, h2d, launch, d2h and
-    scatter (count_batch counts it, and `run_bucketed.fitted_batches` a
-    fitted one)."""
+    (parallel.mesh.resolve_mesh); the outputs of the rows that round a
+    batch up to the mesh are dropped.  Traced, the call is the span
+    `run_bucketed`, each batch's leaves pad, h2d, launch, d2h and
+    scatter."""
     mesh = resolve_mesh(mesh, device)
     out = np.zeros((len(clips), out_dim), np.float32)
-    pinned = any(d.type == "cuda" for d in mesh)
     step = getattr(batch_fn, "frame_stride", None)
-    with span("run_bucketed"), STAGES.checkout(pinned) as stage:
-        lengths = [len(y) for y in clips]
-        groups = (fitted_groups(lengths, batch_size, step, buckets[-1]) if step
-                  else bucket_groups(lengths, batch_size, buckets))
-        for bucket, chunk in groups:
-            with span("run_bucketed.batch"):
-                with span("run_bucketed.pad"):
-                    rows = -(-len(chunk) // len(mesh)) * len(mesh)
-                    batch, lens = pad_batch(clips, chunk, bucket, rows, stage)
-                with span("run_bucketed.h2d"):
-                    shards = shard_batch(mesh, batch, lens)
-                with span("run_bucketed.launch"):
-                    outs = launch_shards(batch_fn, shards)
-                with span("run_bucketed.d2h"):
-                    got = gather(outs)
-                with span("run_bucketed.scatter"):
-                    out[chunk] = got[: len(chunk)]
-                if tracing():
-                    count_batch("run_bucketed", batch, lens, got.nbytes)
-                    count("run_bucketed.fitted_batches", 1 if step else 0)
+    lengths = [len(y) for y in clips]
+    groups = (fitted_groups(lengths, batch_size, step, buckets[-1]) if step
+              else bucket_groups(lengths, batch_size, buckets))
+    for chunk, _, got in host_batches("run_bucketed", clips, groups, batch_fn, mesh,
+                                      "run_bucketed.launch"):
+        with span("run_bucketed.scatter"):
+            out[chunk] = got[: len(chunk)]
     return out
 
 

@@ -116,10 +116,10 @@ def extract_features_sharded(mesh, audio, lengths, **kw) -> np.ndarray:
     kernels on each CUDA device) over the mesh: audio [B, N], lengths [B]
     (numpy or tensors; B a multiple of the mesh's size) -> [B, 149] on the
     host.  kw passes through to the extractor."""
-    from stutter_tpu_torch.ops.frontend import extract_features_149_batch, sharded_batch_fn
+    from stutter_tpu_torch.ops.frontend import extract_features_149_batch, gather, launch_shards
 
-    return sharded_batch_fn(functools.partial(extract_features_149_batch, **kw), mesh)(
-        audio, lengths)
+    fn = functools.partial(extract_features_149_batch, **kw)
+    return gather(launch_shards(fn, shard_batch(mesh, audio, lengths)))
 
 
 def denoise_sharded(mesh, audio, lengths, cfg=None) -> np.ndarray:
@@ -128,10 +128,10 @@ def denoise_sharded(mesh, audio, lengths, cfg=None) -> np.ndarray:
     peak-normalised [B, N] on the host."""
     from stutter_tpu_torch.config import DenoiseConfig
     from stutter_tpu_torch.denoise import denoise_batch
-    from stutter_tpu_torch.ops.frontend import sharded_batch_fn
+    from stutter_tpu_torch.ops.frontend import gather, launch_shards
 
     fn = functools.partial(denoise_batch, cfg=cfg if cfg is not None else DenoiseConfig())
-    return sharded_batch_fn(fn, mesh)(audio, lengths)
+    return gather(launch_shards(fn, shard_batch(mesh, audio, lengths)))
 
 
 def _smoothed_ce_sum(logits: torch.Tensor, y: torch.Tensor, n_classes: int,

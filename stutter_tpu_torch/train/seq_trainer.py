@@ -45,8 +45,9 @@ import torch
 from stutter_tpu_torch.device import resolve_device
 from stutter_tpu_torch.models.layers import StackedParams
 from stutter_tpu_torch.ops.delta import sg_deltas
-from stutter_tpu_torch.ops.frontend import DEFAULT_BUCKETS, pad_to_bucket, spect_mel_db
+from stutter_tpu_torch.ops.frontend import bucket_groups, host_batches, spect_mel_db
 from stutter_tpu_torch.ops.spectral import mfcc_from_db
+from stutter_tpu_torch.utils.profiling import span
 
 FEATURE_DIMS = {"logmel": 128, "mfcc_deltas": 60}
 
@@ -126,26 +127,17 @@ def prepare_sequence_dataset(
 ) -> tuple[np.ndarray, np.ndarray]:
     """clips -> (features [N, t_max, D], n_valid [N]) on the host, padded or
     cut to t_max frames; each bucket of clips featurized in batches on
-    `device`.  kind='logmel': D = 128; kind='mfcc_deltas': D = 60."""
-    device = resolve_device(device)
+    `device` (ops.frontend.host_batches; traced, each batch's leaves are
+    pad, h2d, launch, d2h and unpad).  kind='logmel': D = 128;
+    kind='mfcc_deltas': D = 60."""
+    mesh = (resolve_device(device),)
     out = np.zeros((len(clips), t_max, FEATURE_DIMS[kind]), np.float32)
     n_valid = np.zeros(len(clips), np.int32)
-    by_bucket: dict[int, list[int]] = {}
-    for i, y in enumerate(clips):
-        by_bucket.setdefault(pad_to_bucket(len(y), DEFAULT_BUCKETS), []).append(i)
-    for bucket, idxs in by_bucket.items():
-        for s in range(0, len(idxs), batch):
-            chunk = idxs[s : s + batch]
-            buf = np.zeros((len(chunk), bucket), np.float32)
-            lens = np.zeros(len(chunk), np.int32)
-            for j, i in enumerate(chunk):
-                y = clips[i][:bucket]
-                buf[j, : len(y)] = y
-                lens[j] = len(y)
-            with torch.no_grad():
-                feats, _ = _featurize_seq(torch.from_numpy(buf).to(device),
-                                          torch.from_numpy(lens).to(device), kind, sr)
-            feats = feats.cpu().numpy()
+    groups = bucket_groups([len(y) for y in clips], batch)
+    for chunk, lens, feats in host_batches(
+            "prepare_sequence_dataset", clips, groups,
+            lambda a, n: _featurize_seq(a, n, kind, sr)[0], mesh, "prepare_sequence_dataset.launch"):
+        with span("prepare_sequence_dataset.unpad"):
             for j, i in enumerate(chunk):
                 t = min(1 + int(lens[j]) // 512, t_max)
                 out[i, :t] = feats[j, :t]

@@ -81,13 +81,16 @@ def _clips():
             for n in (9000, 60000, 24576, 30000, 170000, 12000, 50000, 100000, 401)]
 
 
-@pytest.mark.parametrize("mesh", [1, 2])
-def test_149_dim_batches_are_the_buckets_batches(mesh, monkeypatch):
+@pytest.mark.parametrize("owner,mesh", [("run_bucketed", 1), ("run_bucketed", 2),
+                                        ("denoise_clips", 1)])
+def test_149_dim_batches_are_the_buckets_batches(owner, mesh, monkeypatch):
     """The 149-dim batch_fn carries no stride, so run_bucketed forms the
-    DEFAULT_BUCKETS batches: the buckets in the order they first come up,
-    each bucket's clips in input order in chunks of batch_size, the rows
-    rounded up to the mesh and N the bucket; traced, no batch counts as
-    fitted."""
+    DEFAULT_BUCKETS batches, and so does denoise_clips (the gate): the
+    buckets in the order they first come up, each bucket's clips in input
+    order in chunks of batch_size, the rows rounded up to the mesh and N
+    the bucket; traced, every one of them is counted."""
+    import stutter_tpu_torch.denoise as dn
+
     clips = _clips()
     fn = batch_extractor_for(FEATURES_149)
     assert not hasattr(fn, "frame_stride")
@@ -99,10 +102,16 @@ def test_149_dim_batches_are_the_buckets_batches(mesh, monkeypatch):
         return orig(clips, idxs, bucket, rows, stage)
 
     monkeypatch.setattr(frontend, "pad_batch", pad_batch)
+    # the gate is not under test here: a stand-in of its shape
+    monkeypatch.setattr(dn, "denoise_batch", lambda audio, lengths, cfg: audio * 0.5)
     before = P.counters()
     with profile(activities=[ProfilerActivity.CPU]):
-        run_bucketed(clips, fn, 149, batch_size=2, device="cpu",
-                     mesh=make_mesh(devices=["cpu"] * mesh))
+        if owner == "denoise_clips":
+            got = dn.denoise_clips(clips, batch_size=2, device="cpu")
+            assert all(np.array_equal(g, 0.5 * y[:CAP]) for g, y in zip(got, clips))
+        else:
+            run_bucketed(clips, fn, 149, batch_size=2, device="cpu",
+                         mesh=make_mesh(devices=["cpu"] * mesh))
     added = {k: v - before.get(k, 0) for k, v in P.counters().items()}
     by: dict[int, list[int]] = {}
     for i, y in enumerate(clips):
@@ -110,6 +119,7 @@ def test_149_dim_batches_are_the_buckets_batches(mesh, monkeypatch):
     want = [(c[s : s + 2], b, -(-len(c[s : s + 2]) // mesh) * mesh)
             for b, c in by.items() for s in range(0, len(c), 2)]
     assert formed == want
-    assert added["run_bucketed.batches"] == len(want)
-    assert added.get("run_bucketed.fitted_batches", 0) == 0
-    assert "run_bucketed.fitted_batches" in P.counters()
+    assert [(c, b) for c, b, _ in want] == [(c, b) for b, c in
+                                            frontend.bucket_groups([len(y) for y in clips], 2)]
+    assert added[f"{owner}.batches"] == len(want)
+    assert added[f"{owner}.pad_samples"] == sum(b * rows for _, b, rows in want)

@@ -193,6 +193,55 @@ def test_with_tuning_only_drops_the_tuning_bin():
         spectromel(a, le, with_tuning=False)
 
 
+def _bucket_loop_dataset(clips, kind, batch, t_max=316, sr=16000):
+    """prepare_sequence_dataset as a loop of its own: each bucket's clips
+    in input order, in chunks of `batch`, zero-padded into a fresh batch,
+    featurized, and each clip's frames cut to its own count."""
+    from stutter_tpu_torch.ops.frontend import DEFAULT_BUCKETS, pad_to_bucket
+    from stutter_tpu_torch.train.seq_trainer import FEATURE_DIMS, _featurize_seq
+
+    out = np.zeros((len(clips), t_max, FEATURE_DIMS[kind]), np.float32)
+    n_valid = np.zeros(len(clips), np.int32)
+    by_bucket: dict[int, list[int]] = {}
+    for i, y in enumerate(clips):
+        by_bucket.setdefault(pad_to_bucket(len(y), DEFAULT_BUCKETS), []).append(i)
+    for bucket, idxs in by_bucket.items():
+        for s in range(0, len(idxs), batch):
+            chunk = idxs[s : s + batch]
+            buf = np.zeros((len(chunk), bucket), np.float32)
+            lens = np.zeros(len(chunk), np.int32)
+            for j, i in enumerate(chunk):
+                y = clips[i][:bucket]
+                buf[j, : len(y)] = y
+                lens[j] = len(y)
+            with torch.no_grad():
+                feats, _ = _featurize_seq(torch.from_numpy(buf), torch.from_numpy(lens), kind, sr)
+            feats = feats.numpy()
+            for j, i in enumerate(chunk):
+                t = min(1 + int(lens[j]) // 512, t_max)
+                out[i, :t] = feats[j, :t]
+                n_valid[i] = t
+    return out, n_valid
+
+
+@pytest.mark.parametrize("kind", ["logmel", "mfcc_deltas"])
+def test_prepare_sequence_dataset_is_its_bucket_loop(kind):
+    """The featurizer through the one host batch loop equals, bit for bit,
+    the same batches padded into fresh zeros: a clip past the largest
+    bucket (cut to it), one of a few samples, and batches of 2 that split
+    the smallest bucket's four clips."""
+    from stutter_tpu_torch.train.seq_trainer import prepare_sequence_dataset
+
+    rng = np.random.RandomState(12)
+    clips = [(0.1 * rng.randn(n)).astype(np.float32)
+             for n in (9000, 170000, 30000, 12000, 20000, 160000, 50000, 401)]
+    X, nv = prepare_sequence_dataset(clips, kind, batch=2, device="cpu")
+    want_X, want_nv = _bucket_loop_dataset(clips, kind, 2)
+    assert X.dtype == want_X.dtype and np.array_equal(X, want_X)
+    assert nv.dtype == want_nv.dtype and np.array_equal(nv, want_nv)
+    assert nv[1] == 316 and nv[7] == 1
+
+
 def test_prepare_and_predict_sequence_dataset_match_jax():
     from stutter_tpu.train import seq_trainer as J
     from stutter_tpu_torch.train import seq_trainer as P

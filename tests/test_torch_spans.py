@@ -1,9 +1,10 @@
 """The port's spans and counters (utils/profiling.py's span, count,
 counters, spans) and the corpus path's use of them: with no profiler
 recording they cost a flag check and record nothing; under a profiler,
-`denoise_clips` and `run_bucketed` emit their "stp." spans, nested per
-batch with sibling leaves that do not overlap, count the work of each
-batch, and return what an untraced call returns."""
+`denoise_clips`, `run_bucketed` and `prepare_sequence_dataset` (the one
+host batch loop, ops/frontend.host_batches) emit their "stp." spans,
+nested per batch with sibling leaves that do not overlap, count the work
+of each batch, and return what an untraced call returns."""
 
 import json
 import logging
@@ -18,10 +19,12 @@ from stutter_tpu_torch.config import DenoiseConfig
 from stutter_tpu_torch.denoise import denoise_clips
 from stutter_tpu_torch.ops.frontend import DEFAULT_BUCKETS, pad_to_bucket, run_bucketed
 from stutter_tpu_torch.parallel.mesh import make_mesh
+from stutter_tpu_torch.train.seq_trainer import prepare_sequence_dataset
 from stutter_tpu_torch.utils import profiling as P
 
 LEAVES = {"denoise_clips": ("pad", "h2d", None, "d2h", "unpad"),
-          "run_bucketed": ("pad", "h2d", "launch", "d2h", "scatter")}
+          "run_bucketed": ("pad", "h2d", "launch", "d2h", "scatter"),
+          "prepare_sequence_dataset": ("pad", "h2d", "launch", "d2h", "unpad")}
 
 
 def _clips():
@@ -87,7 +90,7 @@ def test_with_no_profiler_span_and_count_record_nothing(monkeypatch):
     assert P.counters() == before_c and P.spans() == before_s
 
 
-@pytest.mark.parametrize("owner", ["denoise_clips", "run_bucketed"])
+@pytest.mark.parametrize("owner", ["denoise_clips", "run_bucketed", "prepare_sequence_dataset"])
 def test_corpus_path_spans_nest_per_batch_with_disjoint_leaves(owner, tmp_path):
     """Each call is one `<owner>` span; each batch one `<owner>.batch` span
     inside it, holding its five leaves once each, in order, without
@@ -98,6 +101,8 @@ def test_corpus_path_spans_nest_per_batch_with_disjoint_leaves(owner, tmp_path):
     clips = _clips()
     if owner == "denoise_clips":
         fn = lambda: denoise_clips(clips, DenoiseConfig(), batch_size=2, device="cpu")  # noqa: E731
+    elif owner == "prepare_sequence_dataset":
+        fn = lambda: prepare_sequence_dataset(clips, "logmel", batch=2, device="cpu")  # noqa: E731
     else:
         fn = lambda: run_bucketed(clips, _features, 2, batch_size=2, device="cpu")  # noqa: E731
     _, events, mem, _ = _traced(fn, tmp_path)
@@ -123,19 +128,21 @@ def test_corpus_path_spans_nest_per_batch_with_disjoint_leaves(owner, tmp_path):
 
 
 @pytest.mark.parametrize("owner,mesh", [("denoise_clips", 1), ("run_bucketed", 1),
-                                        ("run_bucketed", 2)])
+                                        ("run_bucketed", 2), ("prepare_sequence_dataset", 1)])
 def test_corpus_path_counters_equal_a_hand_count(owner, mesh, tmp_path):
     """batches, pad_samples (rows x bucket, rows rounded up to the mesh),
-    valid_samples (each clip cut to its bucket), h2d_bytes (the padded
-    float32 audio and the int32 lengths) and d2h_bytes (the output read
-    back) for clips of known lengths; a traced call returns what an
-    untraced one does, bit for bit."""
+    valid_samples (each clip cut to its bucket) and h2d_bytes (the padded
+    float32 audio and the int32 lengths) for clips of known lengths, and no
+    other counter; a traced call returns what an untraced one does, bit
+    for bit."""
     clips = _clips()
     m = make_mesh(devices=["cpu"] * mesh)
 
     def fn():
         if owner == "denoise_clips":
             return denoise_clips(clips, DenoiseConfig(), batch_size=3, device="cpu")
+        if owner == "prepare_sequence_dataset":
+            return prepare_sequence_dataset(clips, "mfcc_deltas", batch=3, device="cpu")
         return run_bucketed(clips, _features, 2, batch_size=3, device="cpu", mesh=m)
 
     rows = lambda n: -(-n // mesh) * mesh  # noqa: E731
@@ -143,11 +150,9 @@ def test_corpus_path_counters_equal_a_hand_count(owner, mesh, tmp_path):
     got, _, _, counted = _traced(fn, tmp_path)
     batches = _batches(clips, 3, rows)
     pad = sum(b[0] for b in batches)
-    d2h = pad * 4 if owner == "denoise_clips" else sum(b[2] for b in batches) * 2 * 4
     assert counted == {f"{owner}.batches": len(batches), f"{owner}.pad_samples": pad,
                        f"{owner}.valid_samples": sum(b[1] for b in batches),
-                       f"{owner}.h2d_bytes": pad * 4 + sum(b[2] for b in batches) * 4,
-                       f"{owner}.d2h_bytes": d2h}
+                       f"{owner}.h2d_bytes": pad * 4 + sum(b[2] for b in batches) * 4}
     assert counted[f"{owner}.valid_samples"] == sum(min(len(y), DEFAULT_BUCKETS[-1])
                                                     for y in clips)
     # on the CPU nothing goes from page-locked memory: counted, and 0
@@ -155,6 +160,8 @@ def test_corpus_path_counters_equal_a_hand_count(owner, mesh, tmp_path):
     if owner == "denoise_clips":
         assert len(got) == len(plain) and all(np.array_equal(a, b) for a, b in zip(got, plain))
         assert all(g.dtype == p.dtype for g, p in zip(got, plain))
+    elif owner == "prepare_sequence_dataset":
+        assert all(np.array_equal(g, p) and g.dtype == p.dtype for g, p in zip(got, plain))
     else:
         assert np.array_equal(got, plain) and got.dtype == plain.dtype
 

@@ -1,9 +1,10 @@
 """The corpus path's reused host stages (ops/frontend.py's HostStage,
 StagePool, pad_batch): a batch padded into a stage that holds stale
 samples is bit for bit the batch a fresh `np.zeros` gives, nothing
-`denoise_clips` or `run_bucketed` returns aliases the stage, threads that
-call at once each get a stage of their own, and, on the card, the stage is
-page-locked, reused from pass to pass and counted as `pinned_bytes`."""
+`denoise_clips`, `run_bucketed` or `prepare_sequence_dataset` returns
+aliases the stage, threads that call at once each get a stage of their
+own, and, on the card, the stage is page-locked, reused from pass to pass
+and counted as `pinned_bytes`."""
 
 import sys
 import threading
@@ -13,12 +14,12 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-import stutter_tpu_torch.denoise as denoise_mod
 from stutter_tpu_torch.config import DenoiseConfig
 from stutter_tpu_torch.denoise import denoise_clips
 from stutter_tpu_torch.ops import frontend
 from stutter_tpu_torch.ops.frontend import DEFAULT_BUCKETS, STAGES, pad_batch, run_bucketed
 from stutter_tpu_torch.parallel.mesh import make_mesh
+from stutter_tpu_torch.train.seq_trainer import prepare_sequence_dataset
 from stutter_tpu_torch.utils import profiling as P
 
 
@@ -52,19 +53,21 @@ def _zeros_pad(clips, idxs, bucket, rows, stage=None):
 def _call(owner, clips, mesh=1):
     if owner == "denoise_clips":
         return denoise_clips(clips, DenoiseConfig(), batch_size=3, device="cpu")
+    if owner == "prepare_sequence_dataset":
+        return prepare_sequence_dataset(clips, "logmel", batch=3, device="cpu")
     return run_bucketed(clips, _features, 3, batch_size=3, device="cpu",
                         mesh=make_mesh(devices=["cpu"] * mesh))
 
 
 def _same(owner, a, b):
-    if owner == "denoise_clips":
+    if owner != "run_bucketed":  # per-clip arrays, or (frames, n_valid)
         return len(a) == len(b) and all(x.dtype == y.dtype and np.array_equal(x, y)
                                         for x, y in zip(a, b))
     return a.dtype == b.dtype and np.array_equal(a, b)
 
 
 def _copy(out):
-    return [x.copy() for x in out] if isinstance(out, list) else out.copy()
+    return [x.copy() for x in out] if isinstance(out, (list, tuple)) else out.copy()
 
 
 def _stale_stage(stale, owner):
@@ -82,12 +85,13 @@ def _stale_stage(stale, owner):
     return STAGES.free[False][-1]
 
 
-@pytest.mark.parametrize("owner", ["pad_batch", "denoise_clips", "run_bucketed"])
+@pytest.mark.parametrize("owner", ["pad_batch", "denoise_clips", "run_bucketed",
+                                   "prepare_sequence_dataset"])
 @pytest.mark.parametrize("stale", ["nan", "larger"])
 def test_a_stale_stage_gives_what_fresh_zeros_give(owner, stale, monkeypatch):
     """A stage pre-filled with NaN, or left over from a larger bucket's
     batch: the padded batch and its lengths (rows past the clips too), and
-    `denoise_clips` / `run_bucketed`'s outputs, are bit for bit those of
+    the outputs of the calls that pad through it, are bit for bit those of
     padding into a fresh np.zeros batch; the call took that stage."""
     clips = _clips(3, SHORT)
     stage = _stale_stage(stale, owner)
@@ -103,7 +107,6 @@ def test_a_stale_stage_gives_what_fresh_zeros_give(owner, stale, monkeypatch):
         return
     with monkeypatch.context() as m:
         m.setattr(frontend, "pad_batch", _zeros_pad)
-        m.setattr(denoise_mod, "pad_batch", _zeros_pad)
         want = _call(owner, clips)
     assert STAGES.free[False][-1] is stage
     got = _call(owner, clips)
@@ -112,7 +115,7 @@ def test_a_stale_stage_gives_what_fresh_zeros_give(owner, stale, monkeypatch):
 
 
 @pytest.mark.parametrize("owner,mesh", [("denoise_clips", 1), ("run_bucketed", 1),
-                                        ("run_bucketed", 2)])
+                                        ("run_bucketed", 2), ("prepare_sequence_dataset", 1)])
 def test_results_outlive_the_next_call(owner, mesh):
     """A call's results are unchanged after a second call over other clips
     in other buckets, padded into the same stage: nothing returned aliases
@@ -127,7 +130,8 @@ def test_results_outlive_the_next_call(owner, mesh):
 
 @pytest.mark.parametrize("owners", [("run_bucketed", "denoise_clips"),
                                     ("run_bucketed", "run_bucketed"),
-                                    ("denoise_clips", "denoise_clips")])
+                                    ("denoise_clips", "denoise_clips"),
+                                    ("prepare_sequence_dataset", "run_bucketed")])
 def test_threads_calling_at_once_get_what_serial_calls_get(owners):
     """Four threads calling the corpus path at once, two over each of two
     clip sets, three calls each, with the interpreter switching threads
@@ -191,19 +195,20 @@ def test_on_the_card_the_stage_is_pinned_reused_and_counted(cuda, monkeypatch):
     def one_pass():
         denoise_clips(clips, DenoiseConfig(), batch_size=3, device=cuda)
         run_bucketed(clips, fn, 149, batch_size=3, device="cuda:0")
+        prepare_sequence_dataset(clips, "logmel", batch=3, device=cuda)
 
     one_pass()
     allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
     one_pass()
     assert torch.cuda.host_memory_stats()["num_host_alloc"] == allocs
     monkeypatch.setattr(frontend, "pad_batch", recording_pad)
-    monkeypatch.setattr(denoise_mod, "pad_batch", recording_pad)
     before = P.counters()
     with profile(activities=[ProfilerActivity.CPU]):
         one_pass()
     added = {k: v - before.get(k, 0) for k, v in P.counters().items()}
     assert staged and all(pinned for pinned, _, _ in staged)
-    pinned = added["denoise_clips.pinned_bytes"] + added["run_bucketed.pinned_bytes"]
-    h2d = added["denoise_clips.h2d_bytes"] + added["run_bucketed.h2d_bytes"]
+    owners = ("denoise_clips", "run_bucketed", "prepare_sequence_dataset")
+    pinned = sum(added[f"{o}.pinned_bytes"] for o in owners)
+    h2d = sum(added[f"{o}.h2d_bytes"] for o in owners)
     assert pinned == sum(b for _, b, _ in staged)
     assert h2d - pinned == sum(n for _, _, n in staged)

@@ -414,9 +414,10 @@ def test_fitted_batches_give_each_clip_alone_and_the_buckets_rows(small):
     """run_bucketed with the encoder's batch_fn (which carries its stride,
     320 samples) over 20 clips of mixed lengths, one past the largest
     bucket and one too short to give a frame, in batches of 4: every batch
-    is fitted to its longest clip (counted as fitted under a profiler), and
-    each clip's row is encode of that clip alone, unpadded and cut to the
-    cap, and the row the DEFAULT_BUCKETS batches give."""
+    is fitted to its longest clip (fitted_groups' batches, each counted
+    under a profiler), and each clip's row is encode of that clip alone,
+    unpadded and cut to the cap, and the row the DEFAULT_BUCKETS batches
+    give."""
     from stutter_tpu_torch.ops.frontend import run_bucketed
 
     fc, p = small
@@ -429,7 +430,8 @@ def test_fitted_batches_give_each_clip_alone_and_the_buckets_rows(small):
     with profile(activities=[ProfilerActivity.CPU]):
         fitted = run_bucketed(clips, fn, 69, batch_size=4, device="cpu")
     added = {k: v - before.get(k, 0) for k, v in P.counters().items()}
-    assert added["run_bucketed.fitted_batches"] == added["run_bucketed.batches"] == 5
+    assert added["run_bucketed.batches"] == len(
+        fitted_groups(lengths, 4, 320, DEFAULT_BUCKETS[-1])) == 5
     assert added["run_bucketed.pad_samples"] == 4 * sum(
         N for N, _ in fitted_groups(lengths, 4, 320, DEFAULT_BUCKETS[-1]))
     bucketed = run_bucketed(clips, lambda a, n: fn(a, n), 69, batch_size=4, device="cpu")
