@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Prints the card's name and power limit (nvidia-smi) and builds the three
+1. Prints the card's name and power limit (nvidia-smi) and builds the four
    CUDA sources from csrc/ with nvcc, all at once.
 2. Holds each kernel (and the spectromel kernel's mel-output mode) against
    its plain PyTorch version on the card, at the paths' batch shapes, at
@@ -137,7 +137,21 @@
    spectromel's three and chroma_stats_kernel for the 149-dim request; the
    gate's three and spectromel_frames for the vote), one per launch of its
    wrapper as launch_counts reads them.
-12. Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
+12. WavLM's attention kernel (csrc/gated_attention.cu), after phase 2,
+   from its own numpy seed: at the corpus cell's shapes (fitted batches of
+   64 at T 45, 136 and 440, 9 rows at 440, one request at 511; ragged
+   clips, one of no frames), q, k and v read by strides, each clip's rows
+   within ATTN_TOL (1e-5, |got - ref| / (1 + |ref|)) of the plain version
+   on the CPU, the rows past its frames zero, one launch a call, no device
+   memory beyond the output, and the pairs the kernel reports it
+   multiplied equal to attn_pairs_run x heads; the kernel, the plain
+   version and SDPA on the plain version's mask timed beside the bound
+   (the benchmark's FP32 operations over 67 TFLOP/s).  Then one encode
+   call of WavLM-Large (weights drawn on the card) on 9 clips of 0.01-10.24
+   s: 24 attention launches, the kernel's device time in it beside the
+   bound of that call's frames, and the embeddings finite (the clip of no
+   frame's zero).
+13. Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
 
 Phase 2 also holds the kernels at the stream paths' shapes: the vote's
 segment, one [1, 2**20] buffer, through the gate and the mel mode without
@@ -153,9 +167,9 @@ launches is retaken (kernel_times up to 3 times,
 then it raises; phase 11's device_profile up to 3 times, then the phase
 fails); the other profiles print whether their window was complete.
 
-Each of the paths 3-5 and 7-11 runs with every launch count set to 0 just
-before it and read just after, and fails if a kernel it uses never
-launched.
+Each of the paths 3-5 and 7-11, and phase 12's encode call, runs with
+every launch count set to 0 just before it and read just after, and fails
+if a kernel it uses never launched.
 
 Any failed check raises, so the exit code is non-zero and no result line is
 printed.  Without a CUDA GPU it exits with code 1 at once.
@@ -177,8 +191,8 @@ import time
 import numpy as np
 
 SR = 16000
-LIBRARIES = ("spectromel", "chroma_stats", "spectral_gate")  # csrc/<name>.cu
-KERNELS = {  # kernel (mode) -> (source, the TPU kernel it replaces)
+LIBRARIES = ("spectromel", "chroma_stats", "spectral_gate", "gated_attention")  # csrc/<name>.cu
+KERNELS = {  # kernel (mode) -> (source, the TPU kernel it replaces, or None)
     "spectromel": ("stutter_tpu_torch/csrc/spectromel.cu",
                    "stutter_tpu/ops/pallas_spectromel.py:409"),
     "spectromel_mel": ("stutter_tpu_torch/csrc/spectromel.cu",
@@ -187,7 +201,11 @@ KERNELS = {  # kernel (mode) -> (source, the TPU kernel it replaces)
                      "stutter_tpu/ops/pallas_chroma.py:95"),
     "spectral_gate": ("stutter_tpu_torch/csrc/spectral_gate.cu",
                       "stutter_tpu/ops/pallas_denoise.py:265"),
+    # WavLM's attention core: the JAX package has no WavLM
+    "gated_attention": ("stutter_tpu_torch/csrc/gated_attention.cu", None),
 }
+# the front end's kernels, which every featurizing path launches
+FRONT_END_KERNELS = ("spectromel", "spectromel_mel", "chroma_stats", "spectral_gate")
 N_CORPUS, CLASSES = 905, ("block", "fluent", "repetition")
 N_TRAIN = 905  # the training phase's corpus
 # phase 9's epochs: the published recipe's 80 would take the BiLSTM's grid
@@ -196,6 +214,9 @@ N_TRAIN = 905  # the training phase's corpus
 SEQ_EPOCHS = 30
 SEQ_WINDOW = 20  # phase 9's profiled grid steps
 PAR_REPS, PAR_TOL = 5, 1e-5  # phase 10: timed runs of each path; sharded vs unsharded bound
+ATTN_TOL = 1e-5  # phase 12: the attention kernel's worst |got - ref| / (1 + |ref|)
+# phase 12's encode run: seconds of its 9 clips, the first too short for a frame
+ENCODE_S = (0.01, 0.5, 1.2, 2.5, 3.0, 4.4, 6.0, 8.1, 10.24)
 QUINT = {"cnn": 0.2, "cnn_bilstm": 0.15, "transformer": 0.2, "transformer_lr1e3": 0.2,
          "transformer_mix4_lr1e3": 0.25}  # member -> vote weight
 REQUEST_S = (1.5, 3, 3, 3, 3, 5, 6, 10)  # the request mix (s)
@@ -309,6 +330,7 @@ def check(cond: bool, what: str) -> None:
 def launch_counts(reset: bool = False) -> dict:
     """Every wrapper's kernel launches so far, by kernel (mode); reset=True
     then sets them to 0."""
+    from stutter_tpu_torch.models import wavlm
     from stutter_tpu_torch.ops.chroma_stats import chroma_stats
     from stutter_tpu_torch.ops.spectral_gate import spectral_gate
     from stutter_tpu_torch.ops.spectromel import spectromel
@@ -316,7 +338,8 @@ def launch_counts(reset: bool = False) -> dict:
     counters = {"spectromel": (spectromel, "launches"),
                 "spectromel_mel": (spectromel, "mel_launches"),
                 "chroma_stats": (chroma_stats, "launches"),
-                "spectral_gate": (spectral_gate, "launches")}
+                "spectral_gate": (spectral_gate, "launches"),
+                "gated_attention": (wavlm.gated_attention, "launches")}
     counts = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
     if reset:
         for obj, attr in counters.values():
@@ -1516,7 +1539,7 @@ def training_phase(rng, dev, root: str) -> dict:
     check_files(out_dir, ENGINE_A_FILES, "run_before_after")
     run_cv(286)
     res["launches"] = {k: sum(c[k] for c in res["launches_by_entry"].values()) for k in KERNELS}
-    check_launched(res["launches"], KERNELS, "training")
+    check_launched(res["launches"], FRONT_END_KERNELS, "training")
 
     # ten fed steps at full width, G = 40 (the CV grid's shape), card vs CPU
     X, labels, _, _ = pipeline.extract_corpus(root, cfgs[149], "clean", device=dev)
@@ -2079,7 +2102,7 @@ def profiling_phase(rng, dev, out_dir: str) -> dict:
                                    "attempts": attempt}
         check_trace(t, launches, TRACED[name], f"trace {name}")
     res["launches"] = launch_counts(reset=True)
-    check_launched(res["launches"], KERNELS, "profiling")
+    check_launched(res["launches"], FRONT_END_KERNELS, "profiling")
     return res
 
 
@@ -2099,6 +2122,69 @@ def profiling_main() -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         print(json.dumps(profiling_phase(np.random.RandomState(11), dev, out_dir)))
     return 0
+
+
+def attention_phase(rng, dev) -> dict:
+    """Phase 12: WavLM's attention kernel (models/wavlm.gated_attention) at
+    the corpus cell's shapes (kernel_phases.ATTENTION_SHAPES), each held to
+    the plain version on the CPU and timed beside it, SDPA and the bound;
+    then one encode call of WavLM-Large (drawn weights) on ENCODE_S's clips,
+    its launches counted from just before it to just after it."""
+    import torch
+
+    from stutter_tpu_torch.config import WavLMConfig
+    from stutter_tpu_torch.models import wavlm as W
+    from stutter_tpu_torch.tools.kernel_phases import (
+        ATTENTION_SHAPES, attention_check, attention_ops, sdpa_call)
+
+    res = {"tolerance": ATTN_TOL, "shapes": {}}
+    for B, T in ATTENTION_SHAPES:
+        r = attention_check(B, T, dev)
+        p, cfg, x, q, k, v, frames = inputs = r.pop("inputs")
+        what = f"gated_attention B={B} T={T}"
+        check(r["gap"] <= ATTN_TOL, f"{what}: {r['gap']:.2e} from the plain version")
+        check(r["padded_rows_zero"], f"{what}: a row past a clip's frames is not zero")
+        check(r["launches"] == 1, f"{what}: {r['launches']} launches a call")
+        check(r["extra_bytes"] <= 1 << 20, f"{what}: {r['extra_bytes']} bytes beyond the output")
+        check(r["pairs"] == r["pairs_run"] and r["counted_call_equal"],
+              f"{what}: the kernel multiplied {r['pairs']} pairs, attn_pairs_run counts "
+              f"{r['pairs_run']}, the counted call equal {r['counted_call_equal']}")
+        r.update(bound(4 * 5 * cfg.hidden_size * int(frames.sum()),
+                       attention_ops(frames.tolist(), cfg)),
+                 B=B, ms=time_ms(lambda: W.gated_attention(p, 0, x, q, k, v, frames, cfg)),
+                 plain_ms=time_ms(lambda: W.gated_attention_plain(p, 0, x, q, k, v, frames, cfg)),
+                 library_ms=time_ms(sdpa_call(*inputs)))
+        res["shapes"][f"{B}x{T}"] = r
+        del inputs, p, x, q, k, v, frames
+
+    cfg = WavLMConfig()
+    p = W.encoder_for(cfg).params(dev)
+    lengths = [int(s * SR) for s in ENCODE_S]
+    audio = np.zeros((len(lengths), max(lengths)), np.float32)
+    for i, n in enumerate(lengths):
+        audio[i, :n] = structured_clips(rng, 1, n)[0]
+    a, n = torch.from_numpy(audio).to(dev), torch.tensor(lengths, device=dev)
+    W.encode(p, a, n, cfg)  # the bucket vector, cuDNN's algorithms
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    emb = W.encode(p, a, n, cfg)
+    torch.cuda.synchronize()
+    launches = launch_counts(reset=True)
+    check(launches["gated_attention"] == cfg.num_hidden_layers,
+          f"encode: {launches['gated_attention']} attention launches, "
+          f"{cfg.num_hidden_layers} layers")
+    check(bool(torch.isfinite(emb).all()) and not emb[0].any(),
+          "encode: an embedding not finite, or the clip of no frame's not zero")
+    frames = [W.frame_lengths(x, cfg) for x in lengths]
+    dev_ms = device_ms(lambda: W.encode(p, a, n, cfg))
+    res["encode"] = {"clips": len(lengths), "frames": frames, "launches": launches,
+                     "ms": dev_ms.get("gated_attention_kernel", 0.0),
+                     "encode_device_ms": sum(dev_ms.values()),
+                     **bound(cfg.num_hidden_layers * 4 * 5 * cfg.hidden_size * sum(frames),
+                             cfg.num_hidden_layers * attention_ops(frames, cfg))}
+    W.release()
+    torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:
@@ -2174,6 +2260,15 @@ def main() -> int:
         st = res["stats_launch"]
         print(f"spectromel_stats {name} B={res['B']} N={res['N']}: {st['ms']:.4f} ms of device "
               f"time, bound {st['bound_ms']:.5f} ms ({st['bound_by']}), plan {st['plan']} ({card})")
+
+    attn = attention_phase(np.random.RandomState(12), dev)  # phase 12, its own generator
+    for name, res in attn["shapes"].items():
+        print(f"gated_attention {name}: {json.dumps(res)} ({card})")
+    enc = attn["encode"]
+    print(f"gated_attention in one WavLM-Large encode call of {enc['clips']} clips "
+          f"({sum(enc['frames'])} frames): {enc['launches']['gated_attention']} launches, "
+          f"{enc['ms']:.4f} ms of device time, bound {enc['bound_ms']:.5f} ms "
+          f"({enc['bound_by']}); the call {enc['encode_device_ms']:.3f} ms ({card})")
 
     with tempfile.TemporaryDirectory() as out_dir:  # phase 3: serving, 149-dim
         cfg149 = PipelineConfig()
@@ -2314,7 +2409,8 @@ def main() -> int:
              head["launches_predict_clip"], head["launches_predict_batch"],
              head["stream_vote"]["launches_one_pass"], head["stream_mlp"]["launches_one_pass"],
              head["launches_http"], train["launches"], train["serve"]["launches"],
-             seq["launches"], seq["serve"]["launches"], par["launches"], timing["launches"]]
+             seq["launches"], seq["serve"]["launches"], par["launches"], timing["launches"],
+             enc["launches"]]
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
     # (name, max abs error, batch-shape result, request-shape result,
     # stream-shape result); no single PyTorch call computes any of these
@@ -2343,6 +2439,21 @@ def main() -> int:
                     for pre, t in (("", r), ("request_", q), ("stream_", w))
                     for k in ("ms", "bound_ms")} if "stats_launch" in r else {})}
                for n, err, r, q, w in rows]
+    # the attention kernel at the cell's largest batch and one request, SDPA
+    # on the same inputs as the library's call; every shape and the encode run
+    ab, aq = attn["shapes"]["64x440"], attn["shapes"]["1x511"]
+    kernels.append({"name": "gated_attention", "route": "cuda",
+                    "source": KERNELS["gated_attention"][0], "replaces": None,
+                    "launches": launches["gated_attention"],
+                    "max_rel_gap": max(r["gap"] for r in attn["shapes"].values()),
+                    "ms": ab["ms"], "plain_ms": ab["plain_ms"], "bound_ms": ab["bound_ms"],
+                    "bound_by": ab["bound_by"], "library_ms": ab["library_ms"], "batch": ab["B"],
+                    "request_ms": aq["ms"], "request_plain_ms": aq["plain_ms"],
+                    "request_bound_ms": aq["bound_ms"],
+                    "shapes": {k: {f: r[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                     "gap", "pairs", "pairs_valid")}
+                               for k, r in attn["shapes"].items()},
+                    "encode": {f: enc[f] for f in ("clips", "launches", "ms", "bound_ms")}})
     check(all(k["launches"] > 0 for k in kernels), f"a kernel never launched: {launches}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

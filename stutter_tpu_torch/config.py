@@ -134,7 +134,11 @@ class WavLMConfig:
     microsoft/wavlm-large's config.json (the defaults: WavLM-Large, with
     feat_extract_norm "layer", conv_bias false, do_stable_layer_norm true).
     The weights are the .npz `weights` (persist.save_wavlm, the checkpoint's
-    parameter names) or, without one, drawn from `seed` on the device."""
+    parameter names) or, without one, drawn from `seed` on the device.  On
+    a CUDA device the attention core is one kernel (csrc/gated_attention.cu)
+    that takes a head width hidden_size / num_attention_heads of 64 only,
+    as both published WavLMs have; another raises ValueError there (the
+    CPU runs any width)."""
 
     conv_dim: Tuple[int, ...] = (512,) * 7
     conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)

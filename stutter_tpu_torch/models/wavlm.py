@@ -21,8 +21,10 @@ conv_bias false, do_stable_layer_norm true), in inference:
     attention, residual; LayerNorm, FFN with GELU, residual; then a final
     LayerNorm.  Layer 0's rel_attn_embed [num_buckets, heads] gives one
     position bias [heads, T, T] that every layer reuses; each layer scales
-    it per query row by a gate from its own input (gated_attention), and
-    padded keys are masked out;
+    it per query row by a gate from its own input, and padded keys are
+    masked out (gated_attention: on a CUDA device one kernel,
+    csrc/gated_attention.cu, that gathers the bias by bucket, gates it a
+    row and bounds its keys by each clip's frames, with no [T, T] tensor);
   * the embedding: the mean of the last hidden state over a clip's valid
     frames.
 
@@ -41,7 +43,9 @@ other device gets a copy (parallel.mesh.replicate).
 Traced (utils.profiling), an `encode` call is the span `wavlm.encode`,
 holding `wavlm.featenc`, `wavlm.pos_conv` and one `wavlm.attention` per
 layer, and counts `wavlm.batches`, `valid_frames`, `sent_frames`,
-`attn_pairs_valid` (sum of T_i^2) and `attn_pairs_sent` (B x T_pad^2).
+`attn_pairs_valid` (sum of T_i^2), `attn_pairs_sent` (B x T_pad^2) and
+`attn_pairs_run` (the pairs the attention kernel multiplies:
+attn_pairs_run).
 """
 
 from __future__ import annotations
@@ -53,14 +57,19 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from stutter_tpu_torch import _build
 from stutter_tpu_torch.config import WavLMConfig
 from stutter_tpu_torch.utils.profiling import count, span, tracing
 
 CONV_LN_EPS = 1e-5  # the feature encoder's LayerNorms (nn.LayerNorm's default)
 INPUT_EPS = 1e-7  # the input normalisation's (Wav2Vec2FeatureExtractor)
 GATE_DIM = 8  # gru_rel_pos_linear's outputs: 2 groups of 4
+ATTN_HEAD_DIM = 64  # the attention kernel's head width
+# its query rows a warp and keys a group (attn_pairs_run; the card test
+# holds that count to the pairs the kernel itself reports)
+ATTN_ROWS, ATTN_KEYS = 16, 8
 # The longest clip the corpus path sends (ops/frontend's largest bucket,
-# 10.24 s): the position-bias table is built once at its frames
+# 10.24 s): the bucket vector is built once over its frames
 LONGEST = 163840
 # Samples an encode call takes at most: a batch of more rows x samples is
 # encoded in row chunks (64 clips of the 10.24 s bucket are one call)
@@ -243,20 +252,31 @@ def relative_buckets(T: int, num_buckets: int, max_distance: int) -> torch.Tenso
     return buckets + torch.where(rel < exact, rel, large)
 
 
-@functools.lru_cache(maxsize=64)
-def _bucket_table(T: int, num_buckets: int, max_distance: int, device) -> torch.Tensor:
-    return relative_buckets(T, num_buckets, max_distance).to(device)
+@functools.lru_cache(maxsize=8)
+def _bucket_vector(R: int, num_buckets: int, max_distance: int, device) -> torch.Tensor:
+    """[2R - 1] int32: the bucket of key minus query j - i at j - i + R - 1,
+    for |j - i| < R, from relative_buckets(R): its column 0 (j - i <= 0)
+    upwards, then its row 0 (j - i > 0)."""
+    table = relative_buckets(R, num_buckets, max_distance)
+    return torch.cat([table[:, 0].flip(0), table[0, 1:]]).to(torch.int32).to(device)
+
+
+def bucket_vector(T: int, cfg: WavLMConfig, device) -> tuple[torch.Tensor, int]:
+    """The bucket vector of a batch of T frames and its R: one a device,
+    built over R = max(T, the frames of LONGEST), so a batch of a new
+    length costs no table of its own.  A bucket depends only on key minus
+    query, so both paths read every bucket from it."""
+    R = max(T, frame_lengths(LONGEST, cfg))
+    return _bucket_vector(R, cfg.num_buckets, cfg.max_bucket_distance, torch.device(device)), R
 
 
 def position_bias(p: dict, T: int, cfg: WavLMConfig, device) -> torch.Tensor:
-    """Layer 0's relative position bias [heads, T, T], from the [:T, :T]
-    corner of one bucket table a device, built at the frames of LONGEST
-    (or at T, past them): a bucket depends only on key minus query, so the
-    corner is relative_buckets(T), and a batch of a new length costs no
-    table of its own."""
-    rows = max(T, frame_lengths(LONGEST, cfg))
-    table = _bucket_table(rows, cfg.num_buckets, cfg.max_bucket_distance, torch.device(device))
-    return p[LAYER.format(0) + "attention.rel_attn_embed.weight"][table[:T, :T]].permute(2, 0, 1)
+    """Layer 0's relative position bias [heads, T, T]: rel_attn_embed at
+    the bucket of each key minus query, gathered from bucket_vector."""
+    vec, R = bucket_vector(T, cfg, device)
+    t = torch.arange(T, device=device)
+    idx = vec[t[None, :] - t[:, None] + (R - 1)].long()
+    return p[LAYER.format(0) + "attention.rel_attn_embed.weight"][idx].permute(2, 0, 1)
 
 
 def bias_gate(p: dict, i: int, x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -279,41 +299,125 @@ def key_mask(valid: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, 0.0, float("-inf"))[:, None, None, :]
 
 
+# (frames, rel_attn_embed, bias, mask) of the plain path's last call: the
+# layers of one encode call share its frames tensor, so they build the bias
+# and the mask once
+_PLAIN_TERMS: list = [None]
+
+
+def gated_attention_plain(p: dict, i: int, x: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, frames: torch.Tensor, cfg: WavLMConfig) -> torch.Tensor:
+    """Layer i's attention core in PyTorch: each head's slice of q, k, v
+    [B, T, D], the position bias [heads, T, T] gated per query row by
+    bias_gate(x), the key mask of each clip's `frames` (a clip of no frame
+    attends to its first, so no row of the softmax is empty),
+    softmax(q k^T / sqrt(head_dim) + that) v -> [B, T, D].  The bias and
+    the mask are built once for a run of calls with the same `frames`
+    tensor and weights (an encode call's layers)."""
+    B, T, D = x.shape
+    heads = cfg.num_attention_heads
+
+    def split(y):
+        return y.view(B, T, heads, D // heads).transpose(1, 2)
+
+    gate = bias_gate(p, i, x, heads)
+    emb = p[LAYER.format(0) + "attention.rel_attn_embed.weight"]
+    last = _PLAIN_TERMS[0]
+    if last is not None and last[0] is frames and last[1] is emb and last[2].shape[-1] == T:
+        bias, mask = last[2:]
+    else:
+        bias = position_bias(p, T, cfg, x.device)
+        mask = key_mask(_valid(frames, T) | (torch.arange(T, device=x.device) == 0)[None, :])
+        _PLAIN_TERMS[0] = (frames, emb, bias, mask)
+    a = F.scaled_dot_product_attention(split(q), split(k), split(v),
+                                       attn_mask=gate[..., None] * bias + mask)
+    return a.transpose(1, 2).reshape(B, T, D)
+
+
+def _gated_attention_cuda(p, i, x, q, k, v, frames, cfg, pairs=None):
+    """The kernel's launch; `pairs`, a CUDA int64 [1] tensor, gets the
+    query-key pairs the kernel multiplied added to it."""
+    B, T, D = x.shape
+    heads = cfg.num_attention_heads
+    pre = LAYER.format(i) + "attention."
+    emb = p[LAYER.format(0) + "attention.rel_attn_embed.weight"]
+    gw, gb = p[pre + "gru_rel_pos_linear.weight"], p[pre + "gru_rel_pos_linear.bias"]
+    gc = p[pre + "gru_rel_pos_const"]
+    acts = (x, q, k, v)
+    if (D != heads * ATTN_HEAD_DIM or tuple(gw.shape) != (GATE_DIM, ATTN_HEAD_DIM)
+            or tuple(emb.shape) != (cfg.num_buckets, heads) or gc.numel() != heads
+            or any(t.shape != x.shape or t.stride(2) != 1 or t.stride(0) % 4 or t.stride(1) % 4
+                   or t.data_ptr() % 16 for t in acts)
+            or any(t.dtype != torch.float32 or t.device != x.device
+                   for t in (*acts, emb, gw, gb, gc))
+            or not all(t.is_contiguous() for t in (emb, gw, gb, gc))
+            or frames.dtype != torch.int32 or frames.shape != (B,) or frames.device != x.device
+            or pairs is not None and (pairs.dtype != torch.int64 or pairs.device != x.device)):
+        raise ValueError(
+            f"gated_attention kernel needs float32 [B, T, heads x {ATTN_HEAD_DIM}] x, q, k, v "
+            f"on one device (last stride 1, 16-byte rows), {GATE_DIM} gate outputs and int32 "
+            f"frames [B]; got {tuple(x.shape)} {[(t.dtype, t.stride()) for t in acts]}, "
+            f"frames {frames.dtype} {tuple(frames.shape)}")
+    buckets, R = bucket_vector(T, cfg, x.device)
+    out = torch.empty(B, T, D, device=x.device)
+    fn = _build.bind("gated_attention", "gated_attention_launch", 12, 12)
+    ptrs = [t.data_ptr() for t in (*acts, gw, gb, gc, emb, buckets, frames, out)]
+    ptrs.append(None if pairs is None else pairs.data_ptr())
+    strides = [n for t in acts for n in (t.stride(0), t.stride(1))]
+    rc = _build.launch(fn, x, *ptrs, B, T, heads, R, *strides)
+    _build.check(rc, "gated_attention_launch")
+    _LAUNCHES.launches += 1
+    return out
+
+
 def gated_attention(p: dict, i: int, x: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor,
-                    cfg: WavLMConfig) -> torch.Tensor:
-    """Layer i's attention core: q, k, v [B, heads, T, head_dim], the
-    position bias [heads, T, T] gated per query row by bias_gate(x) plus the
-    key mask [B, 1, 1, T], softmax(q k^T / sqrt(head_dim) + that) v ->
-    [B, heads, T, head_dim]."""
-    gate = bias_gate(p, i, x, cfg.num_attention_heads)
-    return F.scaled_dot_product_attention(q, k, v, attn_mask=gate[..., None] * bias + mask)
+                    v: torch.Tensor, frames: torch.Tensor, cfg: WavLMConfig) -> torch.Tensor:
+    """Layer i's attention core: x (its input, for the gate) and the
+    projections q, k, v [B, T, D], `frames` [B] each clip's frames (int32 on
+    a CUDA device) -> softmax(q k^T / sqrt(head_dim) + gated bias + key
+    mask) v [B, T, D].  A CUDA tensor launches csrc/gated_attention.cu (its
+    rows past a clip's frames zero); a CPU tensor runs
+    gated_attention_plain."""
+    if x.is_cuda:
+        return _gated_attention_cuda(p, i, x, q, k, v, frames, cfg)
+    if x.device.type == "cpu":
+        return gated_attention_plain(p, i, x, q, k, v, frames, cfg)
+    raise ValueError(f"gated_attention: no kernel for device {x.device}")
 
 
-def encoder_layer(p: dict, i: int, h: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor,
+gated_attention.launches = 0  # kernel launches
+# the function that holds the count: a caller may wrap the module's name
+# (a tracing span), and the count stays on the function itself
+_LAUNCHES = gated_attention
+
+
+def encoder_layer(p: dict, i: int, h: torch.Tensor, frames: torch.Tensor,
                   cfg: WavLMConfig) -> torch.Tensor:
     """One stable-layer-norm layer: h + attention(LN(h)), then + FFN(LN(.))."""
     pre = LAYER.format(i)
-    B, T, D = h.shape
-    heads = cfg.num_attention_heads
+    D = h.shape[-1]
     x = F.layer_norm(h, (D,), p[pre + "layer_norm.weight"], p[pre + "layer_norm.bias"],
                      cfg.layer_norm_eps)
-
-    def proj(name):
-        y = F.linear(x, p[f"{pre}attention.{name}.weight"], p[f"{pre}attention.{name}.bias"])
-        return y.view(B, T, heads, D // heads).transpose(1, 2)
-
-    q, k, v = proj("q_proj"), proj("k_proj"), proj("v_proj")
+    q, k, v = (F.linear(x, p[f"{pre}attention.{name}.weight"], p[f"{pre}attention.{name}.bias"])
+               for name in ("q_proj", "k_proj", "v_proj"))
     with span("wavlm.attention"):
-        a = gated_attention(p, i, x, q, k, v, bias, mask, cfg)
-    h = h + F.linear(a.transpose(1, 2).reshape(B, T, D), p[pre + "attention.out_proj.weight"],
-                     p[pre + "attention.out_proj.bias"])
+        a = gated_attention(p, i, x, q, k, v, frames, cfg)
+    h = h + F.linear(a, p[pre + "attention.out_proj.weight"], p[pre + "attention.out_proj.bias"])
     y = F.layer_norm(h, (D,), p[pre + "final_layer_norm.weight"],
                      p[pre + "final_layer_norm.bias"], cfg.layer_norm_eps)
     y = F.gelu(F.linear(y, p[pre + "feed_forward.intermediate_dense.weight"],
                         p[pre + "feed_forward.intermediate_dense.bias"]))
     return h + F.linear(y, p[pre + "feed_forward.output_dense.weight"],
                         p[pre + "feed_forward.output_dense.bias"])
+
+
+def attn_pairs_run(frames) -> int:
+    """Query-key pairs a head the attention kernel multiplies for clips of
+    these frame counts: each clip's max(T_i, 1) rows in whole warps of
+    ATTN_ROWS by its keys in whole groups of ATTN_KEYS, summed."""
+    t = torch.as_tensor(frames, dtype=torch.int64).clamp(min=1)
+    rows = (t + ATTN_ROWS - 1) // ATTN_ROWS * ATTN_ROWS
+    return int((rows * ((t + ATTN_KEYS - 1) // ATTN_KEYS * ATTN_KEYS)).sum())
 
 
 def _count(t_len: torch.Tensor, B: int, T: int) -> None:
@@ -323,6 +427,7 @@ def _count(t_len: torch.Tensor, B: int, T: int) -> None:
     count("wavlm.sent_frames", B * T)
     count("wavlm.attn_pairs_valid", int((t * t).sum()))
     count("wavlm.attn_pairs_sent", B * T * T)
+    count("wavlm.attn_pairs_run", attn_pairs_run(t))
 
 
 def encode(p: dict, audio: torch.Tensor, lengths: torch.Tensor,
@@ -345,12 +450,11 @@ def encode(p: dict, audio: torch.Tensor, lengths: torch.Tensor,
         h = torch.where(valid[..., None], project(p, h, cfg), 0.0)
         with span("wavlm.pos_conv"):
             h = h + positional_conv(p, h, cfg)
-        bias = position_bias(p, T, cfg, audio.device)
-        # a clip of no frame attends to its first (padded) one, so no row
-        # of the softmax is empty; its embedding is zeroed below
-        mask = key_mask(valid | (torch.arange(T, device=audio.device) == 0)[None, :])
+        # the attention reads each clip's frames; a clip of no frame attends
+        # to its first (padded) one there, and its embedding is zeroed below
+        frames = t_len.to(torch.int32)
         for i in range(cfg.num_hidden_layers):
-            h = encoder_layer(p, i, h, bias, mask, cfg)
+            h = encoder_layer(p, i, h, frames, cfg)
         h = F.layer_norm(h, (cfg.hidden_size,), p["encoder.layer_norm.weight"],
                          p["encoder.layer_norm.bias"], cfg.layer_norm_eps)
         summed = torch.where(valid[..., None], h, 0.0).sum(1)
@@ -402,7 +506,8 @@ def release() -> None:
     again)."""
     with _ENCODERS_LOCK:
         _ENCODERS.clear()
-    _bucket_table.cache_clear()
+    _bucket_vector.cache_clear()
+    _PLAIN_TERMS[0] = None
 
 
 def batch_fn_for(cfg: WavLMConfig, text_len: int = 5):

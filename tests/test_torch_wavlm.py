@@ -11,6 +11,7 @@ so the gated bias and the query's bias show in the output."""
 import dataclasses
 import filecmp
 import json
+import math
 import os
 from pathlib import Path
 
@@ -173,11 +174,11 @@ def test_each_planted_fault_fails_against_the_reference(small, fault, monkeypatc
     conv's weight norm left out."""
     name, fn = FAULTS[fault]
     monkeypatch.setattr(W, name, fn)
-    W._bucket_table.cache_clear()
+    W._bucket_vector.cache_clear()
     try:
         assert _worst_gap(*small, _clips()) > FAULT
     finally:
-        W._bucket_table.cache_clear()
+        W._bucket_vector.cache_clear()
 
 
 @pytest.mark.gpu
@@ -377,7 +378,9 @@ def test_traced_extraction_opens_the_wavlm_spans_and_counts_the_shapes(small, tm
     `stp.wavlm.encode` a batch holding a `featenc`, a `pos_conv` and one
     `attention` a layer, and the counters add up to the batches' shapes
     (fitted_groups': the clips by length, each batch fitted to its longest):
-    sum T_i and B T_pad frames, sum T_i^2 and B T_pad^2 attention pairs."""
+    sum T_i and B T_pad frames, sum T_i^2 and B T_pad^2 attention pairs, and
+    the pairs the kernel multiplies: each clip's rows in warps of 16 by its
+    keys in groups of 8."""
     fc, _ = small
     clips = _clips((9000, 24576, 30000, 50000, 12000))
     before_c, before_s = P.counters(), len(P.spans())
@@ -399,7 +402,9 @@ def test_traced_extraction_opens_the_wavlm_spans_and_counts_the_shapes(small, tm
                      "wavlm.valid_frames": sum(t),
                      "wavlm.sent_frames": sum(len(c) * T[b] for b, c in batches),
                      "wavlm.attn_pairs_valid": sum(x * x for x in t),
-                     "wavlm.attn_pairs_sent": sum(len(c) * T[b] ** 2 for b, c in batches)}
+                     "wavlm.attn_pairs_sent": sum(len(c) * T[b] ** 2 for b, c in batches),
+                     "wavlm.attn_pairs_run": sum(16 * -(-max(x, 1) // 16) * 8 * -(-max(x, 1) // 8)
+                                                 for x in t)}
     for source in (names, ["stp." + s.name for s in mem if s.name.startswith("wavlm.")]):
         assert source.count("stp.wavlm.encode") == len(batches)
         assert source.count("stp.wavlm.featenc") == source.count("stp.wavlm.pos_conv") == len(batches)
@@ -446,21 +451,164 @@ def test_fitted_batches_give_each_clip_alone_and_the_buckets_rows(small):
 
 @pytest.mark.parametrize("T", [1, 2, 45, 311, 511])
 def test_position_bias_is_a_corner_of_one_table(T):
-    """position_bias slices the [:T, :T] corner of one bucket table a
-    device, built at the frames of the longest clip (511), and equals the
-    bias gathered from relative_buckets(T)."""
+    """position_bias gathers every bucket from one bucket vector a device,
+    built over j - i for the frames of the longest clip (511), and equals
+    the bias gathered from relative_buckets(T)."""
     p = _params(SMALL)
     emb = p[W.LAYER.format(0) + "attention.rel_attn_embed.weight"]
-    W._bucket_table.cache_clear()
+    W._bucket_vector.cache_clear()
     try:
         got = W.position_bias(p, T, SMALL, "cpu")
         W.position_bias(p, 45, SMALL, "cpu")
-        assert W._bucket_table.cache_info().currsize == 1
-        table = W._bucket_table(W.frame_lengths(W.LONGEST, SMALL), SMALL.num_buckets,
-                                SMALL.max_bucket_distance, torch.device("cpu"))
-        assert table.shape == (511, 511)
+        assert W._bucket_vector.cache_info().currsize == 1
+        vec, R = W.bucket_vector(T, SMALL, "cpu")
+        assert R == 511 and vec.shape == (2 * 511 - 1,)
         want = W.relative_buckets(T, SMALL.num_buckets, SMALL.max_bucket_distance)
-        assert torch.equal(table[:T, :T], want)
         assert torch.equal(got, emb[want].permute(2, 0, 1))
     finally:
-        W._bucket_table.cache_clear()
+        W._bucket_vector.cache_clear()
+
+
+def _parent_gated_attention(p, i, x, q, k, v, bias, mask, cfg):
+    """The attention core as the port computed it before the kernel: q, k, v
+    as [B, heads, T, head_dim] views of the projections, gate x bias + key
+    mask built whole, scaled_dot_product_attention."""
+    gate = W.bias_gate(p, i, x, cfg.num_attention_heads)
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=gate[..., None] * bias + mask)
+
+
+def _formula(p, i, x, q, k, v, frames, cfg):
+    """The kernel's formula in float64, each clip on its own: rows and keys
+    i, j < max(T_b, 1), softmax_j(q_i . k_j / sqrt(head_dim) + g_i
+    E[vector[j - i + R - 1]]) v, the bucket vector's entries for the bias."""
+    B, T, D = x.shape
+    H = cfg.num_attention_heads
+    vec, R = W.bucket_vector(T, cfg, "cpu")
+    gate = W.bias_gate(p, i, x, H).double()
+    emb = p[W.LAYER.format(0) + "attention.rel_attn_embed.weight"].double()
+    out = []
+    for b in range(B):
+        n = max(int(frames[b]), 1)
+        rel = torch.arange(n)[None, :] - torch.arange(n)[:, None]
+        bias = emb[vec[rel + R - 1].long()].permute(2, 0, 1)  # [H, n, n]
+        qh, kh, vh = (t[b, :n].double().view(n, H, D // H).transpose(0, 1) for t in (q, k, v))
+        s = qh @ kh.transpose(1, 2) / math.sqrt(D // H) + gate[b, :, :n, None] * bias
+        out.append((torch.softmax(s, -1) @ vh).transpose(0, 1).reshape(n, D))
+    return out
+
+
+@pytest.mark.parametrize("frames,T", [([7], 7), ([1], 1), ([0], 3), ([0, 5], 5),
+                                      ([45, 30, 1, 0, 45], 47), ([130, 64, 65, 3], 131)])
+def test_plain_attention_core_matches_the_sdpa_formulation(frames, T):
+    """gated_attention's plain path (q, k, v [B, T, D] and each clip's
+    frames in, [B, T, D] out) gives what the parent's formulation gives
+    (bias and mask as whole tensors, SDPA on [B, heads, T, head_dim]
+    views), and each clip's rows i < max(T_b, 1) are the kernel's formula
+    in float64: odd T, T = 1, B = 1, ragged clips, clips of no frame."""
+    p = _params(SMALL)
+    B, D, H = len(frames), SMALL.hidden_size, SMALL.num_attention_heads
+    g = torch.Generator().manual_seed(T * 31 + B)
+    x, q, k, v = (torch.randn(B, T, D, generator=g) for _ in range(4))
+    f = torch.tensor(frames, dtype=torch.int32)
+    W._bucket_vector.cache_clear()
+    try:
+        got = W.gated_attention(p, 1, x, q, k, v, f, SMALL)
+        bias = W.position_bias(p, T, SMALL, "cpu")
+        mask = W.key_mask(W._valid(f.long(), T) | (torch.arange(T) == 0)[None, :])
+        split = [t.view(B, T, H, D // H).transpose(1, 2) for t in (q, k, v)]
+        parent = _parent_gated_attention(p, 1, x, *split, bias, mask, SMALL)
+        assert got.shape == (B, T, D)
+        torch.testing.assert_close(got, parent.transpose(1, 2).reshape(B, T, D),
+                                   rtol=0, atol=1e-6)
+        for b, ref in enumerate(_formula(p, 1, x, q, k, v, f, SMALL)):
+            n = ref.shape[0]
+            assert float(((got[b, :n].double() - ref).abs() / (1 + ref.abs())).max()) < 1e-5
+    finally:
+        W._bucket_vector.cache_clear()
+
+
+@pytest.mark.parametrize("T", [1, 2, 45, 136, 440, 511, 512, 600])
+def test_bucket_vector_reproduces_the_bucket_table(T):
+    """The kernel's bucket vector over j - i, built from relative_buckets at
+    R = max(T, 511), gives relative_buckets(T)[i, j] at j - i + R - 1 for
+    every pair of T frames, past the 511 of the longest clip too."""
+    W._bucket_vector.cache_clear()
+    try:
+        vec, R = W.bucket_vector(T, SMALL, "cpu")
+        assert R == max(T, 511) and vec.dtype == torch.int32 and vec.shape == (2 * R - 1,)
+        rel = torch.arange(T)[None, :] - torch.arange(T)[:, None]
+        want = W.relative_buckets(T, SMALL.num_buckets, SMALL.max_bucket_distance)
+        assert torch.equal(vec[rel + R - 1].long(), want)
+    finally:
+        W._bucket_vector.cache_clear()
+
+
+@pytest.mark.parametrize("frames", [[5, 0], [1, 63, 64], [65, 128, 129, 2]])
+def test_attention_pairs_run_add_up_to_the_tiles(small, frames):
+    """A traced encode call counts `wavlm.attn_pairs_run`: the pairs a head
+    the kernel multiplies, sum 16 ceil(T / 16) x 8 ceil(T / 8) at T =
+    max(T_b, 1), a clip of no frame costing one warp's rows by one key
+    group."""
+    _, p = small
+    n = [320 * (t - 1) + 400 if t else 300 for t in frames]
+    assert [W.frame_lengths(x, SMALL) for x in n] == frames
+    audio = torch.from_numpy(np.stack([np.pad(y, (0, max(n) - len(y)))
+                                       for y in _clips(tuple(n))]))
+    before = P.counters()
+    with profile(activities=[ProfilerActivity.CPU]), torch.no_grad():
+        W.encode(p, audio, torch.tensor(n), SMALL)
+    added = P.counters()["wavlm.attn_pairs_run"] - before.get("wavlm.attn_pairs_run", 0)
+    want = sum(16 * -(-max(t, 1) // 16) * 8 * -(-max(t, 1) // 8) for t in frames)
+    assert added == W.attn_pairs_run(frames) == want
+
+
+def test_plain_path_builds_the_bias_and_mask_once_an_encode_call(small, monkeypatch):
+    """On the CPU an encode call's layers share one position bias and one
+    key mask, built at its first layer; the next call builds its own, so a
+    replaced position_bias or key_mask still reaches every call."""
+    _, p = small
+    built = []
+    for name in ("position_bias", "key_mask"):
+        def wrapped(*a, _fn=getattr(W, name), _name=name, **k):
+            built.append(_name)
+            return _fn(*a, **k)
+        monkeypatch.setattr(W, name, wrapped)
+    audio = torch.from_numpy(np.stack([np.pad(y, (0, 30000 - len(y)))
+                                       for y in _clips((9000, 30000))]))
+    with torch.no_grad():
+        first = W.encode(p, audio, torch.tensor([9000, 30000]), SMALL)
+        assert built == ["position_bias", "key_mask"]
+        again = W.encode(p, audio, torch.tensor([9000, 30000]), SMALL)
+    assert built == ["position_bias", "key_mask"] * 2
+    assert torch.equal(first, again)
+
+
+def _bench_counts():
+    """benchmark/counts/wavlm.py, loaded from its file as a package of its
+    own name (its module imports `.work`)."""
+    import importlib.util
+    import sys
+
+    root = REPO / "benchmark" / "counts"
+    if "_bench_counts" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "_bench_counts", root / "__init__.py", submodule_search_locations=[str(root)])
+        pkg = importlib.util.module_from_spec(spec)
+        sys.modules["_bench_counts"] = pkg
+        spec.loader.exec_module(pkg)
+    return importlib.import_module("_bench_counts.wavlm")
+
+
+@pytest.mark.parametrize("frames", [[1], [45, 0, 30], [440, 136, 511], list(range(0, 600, 37))])
+def test_kernel_phases_bound_counts_the_benchmarks_operations(frames):
+    """kernel_phases.attention_ops, the numerator of the attention kernel's
+    bound in its phases and smoke lines, is the benchmark's count of one
+    layer's attention core (counts.wavlm.attention) summed over the clips,
+    at WavLM-Large's widths and at SMALL's."""
+    from stutter_tpu_torch.tools.kernel_phases import attention_ops
+
+    counts = _bench_counts()
+    for cfg in (WavLMConfig(), SMALL):
+        enc = dataclasses.asdict(cfg)
+        assert attention_ops(frames, cfg) == sum(counts.attention(t, enc)[0] for t in frames)
