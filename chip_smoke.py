@@ -137,20 +137,22 @@
    spectromel's three and chroma_stats_kernel for the 149-dim request; the
    gate's three and spectromel_frames for the vote), one per launch of its
    wrapper as launch_counts reads them.
-12. WavLM's attention kernel (csrc/gated_attention.cu), after phase 2,
-   from its own numpy seed: at the corpus cell's shapes (fitted batches of
-   64 at T 45, 136 and 440, 9 rows at 440, one request at 511; ragged
-   clips, one of no frames), q, k and v read by strides, each clip's rows
-   within ATTN_TOL (1e-5, |got - ref| / (1 + |ref|)) of the plain version
-   on the CPU, the rows past its frames zero, one launch a call, no device
-   memory beyond the output, and the pairs the kernel reports it
-   multiplied equal to attn_pairs_run x heads; the kernel, the plain
-   version and SDPA on the plain version's mask timed beside the bound
-   (the benchmark's FP32 operations over 67 TFLOP/s).  Then one encode
-   call of WavLM-Large (weights drawn on the card) on 9 clips of 0.01-10.24
-   s: 24 attention launches, the kernel's device time in it beside the
-   bound of that call's frames, and the embeddings finite (the clip of no
-   frame's zero).
+12. The attention kernel (csrc/gated_attention.cu) in each of its modes,
+   WavLM's gated attention and W2V-BERT 2.0's relative-key attention,
+   after phase 2, from its own numpy seed: at the corpus cells' shapes
+   (fitted batches of 64 at T 45, 136 and 440, 9 rows at 440, one request
+   at 511; ragged clips, one of no frames), q, k and v read by strides,
+   each clip's rows within ATTN_TOL (1e-5, |got - ref| / (1 + |ref|)) of
+   the plain version on the CPU, the rows past its frames zero, one launch
+   a call, no device memory beyond the output, and the pairs the kernel
+   reports it multiplied equal to attn_pairs_run x heads; the kernel, the
+   plain version and SDPA on the plain version's mask timed beside the
+   bound (the benchmark's FP32 operations over 67 TFLOP/s).  Then one
+   encode call of WavLM-Large and one of W2V-BERT 2.0 (weights drawn on
+   the card) on the same 9 clips of 0.01-10.24 s: 24 launches of the
+   model's mode and none of another kernel, the kernel's device time in it
+   beside the bound of that call's frames, and the embeddings finite (the
+   clip of no frame's zero).
 13. Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
 
 Phase 2 also holds the kernels at the stream paths' shapes: the vote's
@@ -167,7 +169,7 @@ launches is retaken (kernel_times up to 3 times,
 then it raises; phase 11's device_profile up to 3 times, then the phase
 fails); the other profiles print whether their window was complete.
 
-Each of the paths 3-5 and 7-11, and phase 12's encode call, runs with
+Each of the paths 3-5 and 7-11, and phase 12's encode calls, runs with
 every launch count set to 0 just before it and read just after, and fails
 if a kernel it uses never launched.
 
@@ -201,8 +203,10 @@ KERNELS = {  # kernel (mode) -> (source, the TPU kernel it replaces, or None)
                      "stutter_tpu/ops/pallas_chroma.py:95"),
     "spectral_gate": ("stutter_tpu_torch/csrc/spectral_gate.cu",
                       "stutter_tpu/ops/pallas_denoise.py:265"),
-    # WavLM's attention core: the JAX package has no WavLM
+    # the attention cores of WavLM and W2V-BERT, the two modes of one
+    # kernel: the JAX package has neither model
     "gated_attention": ("stutter_tpu_torch/csrc/gated_attention.cu", None),
+    "relkey_attention": ("stutter_tpu_torch/csrc/gated_attention.cu", None),
 }
 # the front end's kernels, which every featurizing path launches
 FRONT_END_KERNELS = ("spectromel", "spectromel_mel", "chroma_stats", "spectral_gate")
@@ -330,7 +334,7 @@ def check(cond: bool, what: str) -> None:
 def launch_counts(reset: bool = False) -> dict:
     """Every wrapper's kernel launches so far, by kernel (mode); reset=True
     then sets them to 0."""
-    from stutter_tpu_torch.models import wavlm
+    from stutter_tpu_torch.models import w2v_bert, wavlm
     from stutter_tpu_torch.ops.chroma_stats import chroma_stats
     from stutter_tpu_torch.ops.spectral_gate import spectral_gate
     from stutter_tpu_torch.ops.spectromel import spectromel
@@ -339,7 +343,8 @@ def launch_counts(reset: bool = False) -> dict:
                 "spectromel_mel": (spectromel, "mel_launches"),
                 "chroma_stats": (chroma_stats, "launches"),
                 "spectral_gate": (spectral_gate, "launches"),
-                "gated_attention": (wavlm.gated_attention, "launches")}
+                "gated_attention": (wavlm.gated_attention, "launches"),
+                "relkey_attention": (w2v_bert.relkey_attention, "launches")}
     counts = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
     if reset:
         for obj, attr in counters.values():
@@ -2125,65 +2130,83 @@ def profiling_main() -> int:
 
 
 def attention_phase(rng, dev) -> dict:
-    """Phase 12: WavLM's attention kernel (models/wavlm.gated_attention) at
-    the corpus cell's shapes (kernel_phases.ATTENTION_SHAPES), each held to
-    the plain version on the CPU and timed beside it, SDPA and the bound;
-    then one encode call of WavLM-Large (drawn weights) on ENCODE_S's clips,
-    its launches counted from just before it to just after it."""
+    """Phase 12: each mode of csrc/gated_attention.cu (WavLM's gated
+    attention, models/wavlm.gated_attention; W2V-BERT 2.0's relative-key
+    attention, models/w2v_bert.relkey_attention) at the corpus cells'
+    shapes (kernel_phases.ATTENTION_SHAPES), each held to the plain version
+    on the CPU and timed beside it, SDPA and the bound; then one encode
+    call of WavLM-Large and one of W2V-BERT 2.0 (drawn weights) on
+    ENCODE_S's clips, each one's launches counted from just before it to
+    just after it -> {kernel: {"shapes", "encode"}}."""
     import torch
 
-    from stutter_tpu_torch.config import WavLMConfig
-    from stutter_tpu_torch.models import wavlm as W
+    from stutter_tpu_torch.config import W2VBertConfig, WavLMConfig
+    from stutter_tpu_torch.models import encoder_module
     from stutter_tpu_torch.tools.kernel_phases import (
-        ATTENTION_SHAPES, attention_check, attention_ops, sdpa_call)
+        ATTENTION_MODES, ATTENTION_SHAPES, attention_check, attention_model, attention_ops,
+        sdpa_call)
 
-    res = {"tolerance": ATTN_TOL, "shapes": {}}
-    for B, T in ATTENTION_SHAPES:
-        r = attention_check(B, T, dev)
-        p, cfg, x, q, k, v, frames = inputs = r.pop("inputs")
-        what = f"gated_attention B={B} T={T}"
-        check(r["gap"] <= ATTN_TOL, f"{what}: {r['gap']:.2e} from the plain version")
-        check(r["padded_rows_zero"], f"{what}: a row past a clip's frames is not zero")
-        check(r["launches"] == 1, f"{what}: {r['launches']} launches a call")
-        check(r["extra_bytes"] <= 1 << 20, f"{what}: {r['extra_bytes']} bytes beyond the output")
-        check(r["pairs"] == r["pairs_run"] and r["counted_call_equal"],
-              f"{what}: the kernel multiplied {r['pairs']} pairs, attn_pairs_run counts "
-              f"{r['pairs_run']}, the counted call equal {r['counted_call_equal']}")
-        r.update(bound(4 * 5 * cfg.hidden_size * int(frames.sum()),
-                       attention_ops(frames.tolist(), cfg)),
-                 B=B, ms=time_ms(lambda: W.gated_attention(p, 0, x, q, k, v, frames, cfg)),
-                 plain_ms=time_ms(lambda: W.gated_attention_plain(p, 0, x, q, k, v, frames, cfg)),
-                 library_ms=time_ms(sdpa_call(*inputs)))
-        res["shapes"][f"{B}x{T}"] = r
-        del inputs, p, x, q, k, v, frames
+    res = {}
+    for mode in ATTENTION_MODES:
+        M, kernel = attention_model(mode)
+        core, plain = getattr(M, kernel), getattr(M, f"{kernel}_plain")
+        res[kernel] = {"tolerance": ATTN_TOL, "shapes": {}}
+        for B, T in ATTENTION_SHAPES:
+            r = attention_check(B, T, dev, mode)
+            p, cfg, *acts = inputs = r.pop("inputs")
+            frames = acts[-1]
+            what = f"{kernel} B={B} T={T}"
+            check(r["gap"] <= ATTN_TOL, f"{what}: {r['gap']:.2e} from the plain version")
+            check(r["padded_rows_zero"], f"{what}: a row past a clip's frames is not zero")
+            check(r["launches"] == 1, f"{what}: {r['launches']} launches a call")
+            check(r["extra_bytes"] <= 1 << 20, f"{what}: {r['extra_bytes']} bytes beyond the output")
+            check(r["pairs"] == r["pairs_run"] and r["counted_call_equal"],
+                  f"{what}: the kernel multiplied {r['pairs']} pairs, attn_pairs_run counts "
+                  f"{r['pairs_run']}, the counted call equal {r['counted_call_equal']}")
+            # each activation (frames aside) read once and the output written once
+            r.update(bound(4 * len(acts) * cfg.hidden_size * int(frames.sum()),
+                           attention_ops(frames.tolist(), cfg)),
+                     B=B, ms=time_ms(lambda: core(p, 0, *acts, cfg)),
+                     plain_ms=time_ms(lambda: plain(p, 0, *acts, cfg)),
+                     library_ms=time_ms(sdpa_call(*inputs)))
+            res[kernel]["shapes"][f"{B}x{T}"] = r
+            del inputs, p, acts, frames
 
-    cfg = WavLMConfig()
-    p = W.encoder_for(cfg).params(dev)
     lengths = [int(s * SR) for s in ENCODE_S]
     audio = np.zeros((len(lengths), max(lengths)), np.float32)
     for i, n in enumerate(lengths):
         audio[i, :n] = structured_clips(rng, 1, n)[0]
     a, n = torch.from_numpy(audio).to(dev), torch.tensor(lengths, device=dev)
-    W.encode(p, a, n, cfg)  # the bucket vector, cuDNN's algorithms
-    torch.cuda.synchronize()
-    launch_counts(reset=True)
-    emb = W.encode(p, a, n, cfg)
-    torch.cuda.synchronize()
-    launches = launch_counts(reset=True)
-    check(launches["gated_attention"] == cfg.num_hidden_layers,
-          f"encode: {launches['gated_attention']} attention launches, "
-          f"{cfg.num_hidden_layers} layers")
-    check(bool(torch.isfinite(emb).all()) and not emb[0].any(),
-          "encode: an embedding not finite, or the clip of no frame's not zero")
-    frames = [W.frame_lengths(x, cfg) for x in lengths]
-    dev_ms = device_ms(lambda: W.encode(p, a, n, cfg))
-    res["encode"] = {"clips": len(lengths), "frames": frames, "launches": launches,
-                     "ms": dev_ms.get("gated_attention_kernel", 0.0),
-                     "encode_device_ms": sum(dev_ms.values()),
-                     **bound(cfg.num_hidden_layers * 4 * 5 * cfg.hidden_size * sum(frames),
-                             cfg.num_hidden_layers * attention_ops(frames, cfg))}
-    W.release()
-    torch.cuda.empty_cache()
+    # (kernel, model, config, the activations each layer's core reads and
+    # writes: x, q, k, v and the output; q, k, v and the output)
+    encoders = (("gated_attention", "WavLM-Large", WavLMConfig(), 5),
+                ("relkey_attention", "W2V-BERT 2.0", W2VBertConfig(), 4))
+    for kernel, model, cfg, tensors in encoders:
+        M = encoder_module(cfg)
+        p = M.encoder_for(cfg).params(dev)
+        M.encode(p, a, n, cfg)  # the bucket vector, cuDNN's algorithms
+        torch.cuda.synchronize()
+        launch_counts(reset=True)
+        emb = M.encode(p, a, n, cfg)
+        torch.cuda.synchronize()
+        launches = launch_counts(reset=True)
+        what = f"{kernel}: encode"
+        check(launches[kernel] == cfg.num_hidden_layers,
+              f"{what}: {launches[kernel]} attention launches, {cfg.num_hidden_layers} layers")
+        check(sum(launches.values()) == launches[kernel], f"{what}: other launches {launches}")
+        check(bool(torch.isfinite(emb).all()) and not emb[0].any(),
+              f"{what}: an embedding not finite, or the clip of no frame's not zero")
+        frames = [int(M.frame_lengths(x, cfg) if kernel == "gated_attention"
+                      else M.frame_lengths(x)) for x in lengths]
+        dev_ms = device_ms(lambda: M.encode(p, a, n, cfg))
+        res[kernel]["encode"] = {
+            "model": model, "clips": len(lengths), "frames": frames, "launches": launches,
+            "ms": dev_ms.get(f"{kernel}_kernel", 0.0), "encode_device_ms": sum(dev_ms.values()),
+            **bound(cfg.num_hidden_layers * 4 * tensors * cfg.hidden_size * sum(frames),
+                    cfg.num_hidden_layers * attention_ops(frames, cfg))}
+        M.release()
+        del p, emb
+        torch.cuda.empty_cache()
     return res
 
 
@@ -2262,13 +2285,14 @@ def main() -> int:
               f"time, bound {st['bound_ms']:.5f} ms ({st['bound_by']}), plan {st['plan']} ({card})")
 
     attn = attention_phase(np.random.RandomState(12), dev)  # phase 12, its own generator
-    for name, res in attn["shapes"].items():
-        print(f"gated_attention {name}: {json.dumps(res)} ({card})")
-    enc = attn["encode"]
-    print(f"gated_attention in one WavLM-Large encode call of {enc['clips']} clips "
-          f"({sum(enc['frames'])} frames): {enc['launches']['gated_attention']} launches, "
-          f"{enc['ms']:.4f} ms of device time, bound {enc['bound_ms']:.5f} ms "
-          f"({enc['bound_by']}); the call {enc['encode_device_ms']:.3f} ms ({card})")
+    for kernel, res in attn.items():
+        for name, r in res["shapes"].items():
+            print(f"{kernel} {name}: {json.dumps(r)} ({card})")
+        enc = res["encode"]
+        print(f"{kernel} in one {enc['model']} encode call of {enc['clips']} clips "
+              f"({sum(enc['frames'])} frames): {enc['launches'][kernel]} launches, "
+              f"{enc['ms']:.4f} ms of device time, bound {enc['bound_ms']:.5f} ms "
+              f"({enc['bound_by']}); the call {enc['encode_device_ms']:.3f} ms ({card})")
 
     with tempfile.TemporaryDirectory() as out_dir:  # phase 3: serving, 149-dim
         cfg149 = PipelineConfig()
@@ -2410,7 +2434,7 @@ def main() -> int:
              head["stream_vote"]["launches_one_pass"], head["stream_mlp"]["launches_one_pass"],
              head["launches_http"], train["launches"], train["serve"]["launches"],
              seq["launches"], seq["serve"]["launches"], par["launches"], timing["launches"],
-             enc["launches"]]
+             *(res["encode"]["launches"] for res in attn.values())]
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
     # (name, max abs error, batch-shape result, request-shape result,
     # stream-shape result); no single PyTorch call computes any of these
@@ -2439,21 +2463,23 @@ def main() -> int:
                     for pre, t in (("", r), ("request_", q), ("stream_", w))
                     for k in ("ms", "bound_ms")} if "stats_launch" in r else {})}
                for n, err, r, q, w in rows]
-    # the attention kernel at the cell's largest batch and one request, SDPA
-    # on the same inputs as the library's call; every shape and the encode run
-    ab, aq = attn["shapes"]["64x440"], attn["shapes"]["1x511"]
-    kernels.append({"name": "gated_attention", "route": "cuda",
-                    "source": KERNELS["gated_attention"][0], "replaces": None,
-                    "launches": launches["gated_attention"],
-                    "max_rel_gap": max(r["gap"] for r in attn["shapes"].values()),
-                    "ms": ab["ms"], "plain_ms": ab["plain_ms"], "bound_ms": ab["bound_ms"],
-                    "bound_by": ab["bound_by"], "library_ms": ab["library_ms"], "batch": ab["B"],
-                    "request_ms": aq["ms"], "request_plain_ms": aq["plain_ms"],
-                    "request_bound_ms": aq["bound_ms"],
-                    "shapes": {k: {f: r[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                                     "gap", "pairs", "pairs_valid")}
-                               for k, r in attn["shapes"].items()},
-                    "encode": {f: enc[f] for f in ("clips", "launches", "ms", "bound_ms")}})
+    # each mode of the attention kernel at the cells' largest batch and one
+    # request, SDPA on the same inputs as the library's call; every shape
+    # and the encode run
+    for kernel, res in attn.items():
+        ab, aq, enc = res["shapes"]["64x440"], res["shapes"]["1x511"], res["encode"]
+        kernels.append({"name": kernel, "route": "cuda", "source": KERNELS[kernel][0],
+                        "replaces": KERNELS[kernel][1], "launches": launches[kernel],
+                        "max_rel_gap": max(r["gap"] for r in res["shapes"].values()),
+                        "ms": ab["ms"], "plain_ms": ab["plain_ms"], "bound_ms": ab["bound_ms"],
+                        "bound_by": ab["bound_by"], "library_ms": ab["library_ms"],
+                        "batch": ab["B"], "request_ms": aq["ms"],
+                        "request_plain_ms": aq["plain_ms"], "request_bound_ms": aq["bound_ms"],
+                        "shapes": {k: {f: r[f] for f in ("ms", "plain_ms", "library_ms",
+                                                         "bound_ms", "gap", "pairs",
+                                                         "pairs_valid")}
+                                   for k, r in res["shapes"].items()},
+                        "encode": {f: enc[f] for f in ("clips", "launches", "ms", "bound_ms")}})
     check(all(k["launches"] > 0 for k in kernels), f"a kernel never launched: {launches}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -157,13 +157,40 @@ class WavLMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class W2VBertConfig:
+    """A W2V-BERT 2.0 encoder (models/w2v_bert.py: SeamlessM4T's 80-mel
+    Kaldi fbank, frame pairs stacked to 160 dims, then Conformer layers),
+    its widths under the names of facebook/w2v-bert-2.0's config.json (the
+    defaults: the published model, relative_key positions, no adapter).
+    The weights are the .npz `weights` (persist.save_wavlm, the
+    checkpoint's parameter names) or, without one, drawn from `seed` on the
+    device.  On a CUDA device the attention core is the relative-key mode
+    of csrc/gated_attention.cu, which takes a head width hidden_size /
+    num_attention_heads of 64 and at most 80 distances (left + right + 1);
+    another raises ValueError there (the CPU runs any)."""
+
+    hidden_size: int = 1024
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    intermediate_size: int = 4096
+    feature_projection_input_dim: int = 160
+    conv_depthwise_kernel_size: int = 31
+    left_max_position_embeddings: int = 64
+    right_max_position_embeddings: int = 8
+    layer_norm_eps: float = 1e-5
+    seed: int = 0
+    weights: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
 class EmbeddingFeatureConfig(FeatureConfig):
     """Features that are a speech encoder's pooled embedding (the masked
     mean of its last hidden state over a clip's frames) followed by the
-    text placeholders: 1024 + 5 for WavLM-Large.  The front end's
-    sample_rate is the encoder's input rate; its other fields go unused."""
+    text placeholders: 1024 + 5 for WavLM-Large and for W2V-BERT 2.0.  The
+    front end's sample_rate is the encoder's input rate; its other fields
+    go unused."""
 
-    encoder: WavLMConfig = WavLMConfig()
+    encoder: WavLMConfig | W2VBertConfig = WavLMConfig()
 
     @property
     def audio_feature_len(self) -> int:
@@ -176,6 +203,7 @@ class EmbeddingFeatureConfig(FeatureConfig):
 
 
 FEATURES_WAVLM = EmbeddingFeatureConfig()
+FEATURES_W2V_BERT = EmbeddingFeatureConfig(encoder=W2VBertConfig())
 
 
 @dataclasses.dataclass(frozen=True)

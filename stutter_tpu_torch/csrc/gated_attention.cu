@@ -56,6 +56,27 @@
 // its threads multiplied in q k^T: what models/wavlm.attn_pairs_run counts
 // from the clips' frames, which a card test holds to this count.
 //
+// A second mode, `relkey_attention_kernel`, is W2V-BERT 2.0's relative-key
+// attention (models/w2v_bert.py; transformers' Wav2Vec2BertSelfAttention
+// with position_embeddings_type "relative_key"):
+//
+//   out[b, i, h] = softmax_j((q_i . k_j + q_i . D[clamp(j - i, -left,
+//                  right) + left]) / 8) v,  over keys j < max(L_b, 1),
+//
+// where D [left + right + 1, 64] is the layer's distance_embedding, shared
+// by the heads (64 + 8 + 1 = 73 rows in the published model).  One template
+// body runs both modes, with the same tiling, cp.async pipeline, online
+// softmax, length bounds, zeroed padded rows and pairs counter; only the
+// bias differs.  A query row meets at most 73 distinct distances, so the
+// prologue fills a [64, 73] table of q_i . D_d / 8 from the q tile already
+// in shared memory and D, loaded beside it while the first key and value
+// tiles load, each thread 4 rows x 10 distances in registers as q k^T is
+// tiled; a score then costs one shared read of the table at its clamped
+// j - i.  That is 64 x 73 x 64 FMAs a block, under a fifth of q k^T's at
+// T = 440, and nothing of size T x T or B x T x 73 in device memory.  The
+// table and D take ~38 KB more shared memory than the gated mode's bias
+// vector: two blocks share an SM where the gated mode fits three.
+//
 // No --use_fast_math (see _build.py).
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,6 +91,9 @@ constexpr int GATE = 8;       // gru_rel_pos_linear's outputs: 2 groups of 4
 constexpr int LD = 68;        // row stride (floats) of the q, k and v tiles
 constexpr int LDP = 72;       // of the P tile (first the gate's x tile)
 constexpr int BD_LOADS = 8;   // bias gathers a thread keeps in flight
+constexpr int NREL_MAX = 80;  // distances a relative-key table holds: 10 groups of 8
+
+enum Mode { GATED = 0, RELKEY = 1 };
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -157,21 +181,68 @@ __device__ __forceinline__ void weigh(float (&O)[4][8], const float* Ps, const f
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 3)
-    gated_attention_kernel(const float* __restrict__ x, const float* __restrict__ q,
-                           const float* __restrict__ k, const float* __restrict__ v,
-                           const float* __restrict__ gw, const float* __restrict__ gb,
-                           const float* __restrict__ gc, const float* __restrict__ emb,
-                           const int* __restrict__ buckets, const int* __restrict__ lengths,
-                           float* __restrict__ out, unsigned long long* __restrict__ pairs,
-                           int T, int H, int R, int xsb, int xsr,
-                           int qsb, int qsr, int ksb, int ksr, int vsb, int vsr) {
+// Tb[r * ldt + d] = q_r . D_d / 8 for this thread's 4 rows and the
+// distances d = c + 8 mm < nrel (mm < NREL_MAX / 8), from the q tile and D
+// in shared memory, tiled as q k^T is.
+__device__ __forceinline__ void rel_table(float* Tb, int ldt, const float* Qs, const float* Ds,
+                                          const int (&rr)[4], int c, int nrel) {
+  constexpr int NG = NREL_MAX / 8;
+  float S[4][NG];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+    for (int mm = 0; mm < NG; ++mm) S[ii][mm] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < HD; d += 4) {
+    float4 qf[4];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) qf[ii] = *reinterpret_cast<const float4*>(Qs + rr[ii] * LD + d);
+#pragma unroll
+    for (int mm = 0; mm < NG; ++mm) {
+      if (c + 8 * mm >= nrel) continue;
+      const float4 df = *reinterpret_cast<const float4*>(Ds + (c + 8 * mm) * LD + d);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        float t = S[ii][mm];
+        t = fmaf(qf[ii].x, df.x, t);
+        t = fmaf(qf[ii].y, df.y, t);
+        t = fmaf(qf[ii].z, df.z, t);
+        t = fmaf(qf[ii].w, df.w, t);
+        S[ii][mm] = t;
+      }
+    }
+  }
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+    for (int mm = 0; mm < NG; ++mm)
+      if (c + 8 * mm < nrel) Tb[rr[ii] * ldt + c + 8 * mm] = S[ii][mm] * 0.125f;
+}
+
+// The table's row stride: odd, so the 4 rows a warp reads at once fall on
+// different banks.
+__host__ __device__ __forceinline__ int rel_stride(int nrel) { return nrel | 1; }
+
+// One block of either mode.  GATED reads x, gw, gb, gc, emb (layer 0's
+// bucket embedding) and buckets; RELKEY reads emb as D [left + right + 1,
+// 64], and left and right.
+template <int MODE>
+__device__ __forceinline__ void attention_block(
+    const float* __restrict__ x, const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ gw, const float* __restrict__ gb,
+    const float* __restrict__ gc, const float* __restrict__ emb, const int* __restrict__ buckets,
+    const int* __restrict__ lengths, float* __restrict__ out, unsigned long long* __restrict__ pairs,
+    int T, int H, int R, int left, int right, int xsb, int xsr, int qsb, int qsr, int ksb, int ksr,
+    int vsb, int vsr) {
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;            // [BQ, LD]
   float* Ks = Qs + BQ * LD;    // [BK, LD]
   float* Vs = Ks + BK * LD;    // [BK, LD]
-  float* Ps = Vs + BK * LD;    // [BQ, LDP]: the gate's x tile, then P
-  float* Bd = Ps + BQ * LDP;   // bias along j - i: [n_keys + BQ - 1]
+  float* Ps = Vs + BK * LD;    // [BQ, LDP]: GATED the gate's x tile, then P
+  float* Bd = Ps + BQ * LDP;   // GATED: bias along j - i: [n_keys + BQ - 1]
+  const int nrel = left + right + 1, ldt = rel_stride(nrel);
+  float* Tb = Bd;              // RELKEY: [BQ, ldt], q_i . D_d / 8
+  float* Ds = Tb + BQ * ldt;   // RELKEY: D [nrel, LD]
   const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * BQ;
   const int L = max(min(lengths[b], T), 1);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -190,33 +261,39 @@ __global__ void __launch_bounds__(THREADS, 3)
   const int n_kt = (L + BK - 1) / BK;
   const float* kb = k + (long)b * ksb + h * HD;
   const float* vb = v + (long)b * vsb + h * HD;
-  load_tile(Ps, LDP, x + (long)b * xsb + h * HD, xsr, i0, T);
-  load_tile(Qs, LD, q + (long)b * qsb + h * HD, qsr, i0, T);
-  load_tile(Ks, LD, kb, ksr, 0, L);
-  cp_async_commit();
-  load_tile(Vs, LD, vb, vsr, 0, L);
-  cp_async_commit();
-
-  // the bias along j - i: Bd[j - (i - i0) + BQ - 1] for this tile's rows,
-  // BD_LOADS buckets a thread in flight, then their embeddings
-  const int n_bd = n_kt * BK + BQ - 1;
-  for (int e0 = tid; e0 < n_bd; e0 += BD_LOADS * THREADS) {
-    int bk[BD_LOADS];
+  int rr[4];  // this thread's rows in the tile
 #pragma unroll
-    for (int u = 0; u < BD_LOADS; ++u) {
-      const int rel = min(max(e0 + u * THREADS - (BQ - 1) - i0, 1 - R), R - 1);
-      bk[u] = e0 + u * THREADS < n_bd ? __ldg(buckets + rel + R - 1) : 0;
+  for (int ii = 0; ii < 4; ++ii) rr[ii] = warp * 16 + g + 4 * ii;
+  // a warp whose 16 rows are all padding only loads and waits
+  const bool busy = i0 + warp * 16 < L;
+  float gr[4];  // GATED: the gate of each of this thread's rows
+
+  if constexpr (MODE == GATED) {
+    load_tile(Ps, LDP, x + (long)b * xsb + h * HD, xsr, i0, T);
+    load_tile(Qs, LD, q + (long)b * qsb + h * HD, qsr, i0, T);
+    load_tile(Ks, LD, kb, ksr, 0, L);
+    cp_async_commit();
+    load_tile(Vs, LD, vb, vsr, 0, L);
+    cp_async_commit();
+
+    // the bias along j - i: Bd[j - (i - i0) + BQ - 1] for this tile's rows,
+    // BD_LOADS buckets a thread in flight, then their embeddings
+    const int n_bd = n_kt * BK + BQ - 1;
+    for (int e0 = tid; e0 < n_bd; e0 += BD_LOADS * THREADS) {
+      int bk[BD_LOADS];
+#pragma unroll
+      for (int u = 0; u < BD_LOADS; ++u) {
+        const int rel = min(max(e0 + u * THREADS - (BQ - 1) - i0, 1 - R), R - 1);
+        bk[u] = e0 + u * THREADS < n_bd ? __ldg(buckets + rel + R - 1) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < BD_LOADS; ++u)
+        if (e0 + u * THREADS < n_bd) Bd[e0 + u * THREADS] = __ldg(emb + bk[u] * H + h);
     }
-#pragma unroll
-    for (int u = 0; u < BD_LOADS; ++u)
-      if (e0 + u * THREADS < n_bd) Bd[e0 + u * THREADS] = __ldg(emb + bk[u] * H + h);
-  }
-  cp_async_wait<1>();
-  __syncthreads();
+    cp_async_wait<1>();
+    __syncthreads();
 
-  // the gate: thread -> row tid / 2 and one group of 4 outputs, summed
-  float gr[4];
-  {
+    // the gate: thread -> row tid / 2 and one group of 4 outputs, summed
     const int r = tid >> 1, k0 = (tid & 1) * (GATE / 2);
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll 4
@@ -241,14 +318,26 @@ __global__ void __launch_bounds__(THREADS, 3)
     if ((tid & 1) == 0) Ps[r * LDP + HD] = sig * (other * __ldg(gc + h) - 1.f) + 2.f;
     __syncthreads();
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii) gr[ii] = Ps[(warp * 16 + g + 4 * ii) * LDP + HD];
+    for (int ii = 0; ii < 4; ++ii) gr[ii] = Ps[rr[ii] * LDP + HD];
+  } else {
+    // q's tile and D, then the first key and value tiles, which load while
+    // the table is filled
+    load_tile(Qs, LD, q + (long)b * qsb + h * HD, qsr, i0, T);
+    for (int e = tid; e < nrel * (HD / 4); e += THREADS)
+      cp_async16(Ds + (e >> 4) * LD + ((e & 15) << 2), emb + (e >> 4) * HD + ((e & 15) << 2),
+                 true);
+    cp_async_commit();
+    load_tile(Ks, LD, kb, ksr, 0, L);
+    cp_async_commit();
+    load_tile(Vs, LD, vb, vsr, 0, L);
+    cp_async_commit();
+    cp_async_wait<2>();  // q and D are in
+    __syncthreads();
+    if (busy) rel_table(Tb, ldt, Qs, Ds, rr, c, nrel);
+    cp_async_wait<1>();  // the first key tile is in
+    __syncthreads();     // and every row's table written
   }
 
-  int rr[4];  // this thread's rows in the tile
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) rr[ii] = warp * 16 + g + 4 * ii;
-  // a warp whose 16 rows are all padding only loads and waits
-  const bool busy = i0 + warp * 16 < L;
   float O[4][8], m[4], l[4];
   int run = 0;  // pairs this thread multiplied in q k^T
 #pragma unroll
@@ -286,14 +375,22 @@ __global__ void __launch_bounds__(THREADS, 3)
 #pragma unroll
     for (int ii = 0; ii < 4; ++ii) {
       if (!busy) break;
-      const float* bd = Bd + j0 + c - rr[ii] + BQ - 1;
       float mx = -INFINITY;
+      if constexpr (MODE == GATED) {
+        const float* bd = Bd + j0 + c - rr[ii] + BQ - 1;
+#pragma unroll
+        for (int mm = 0; mm < 8; ++mm) S[ii][mm] = fmaf(S[ii][mm], 0.125f, gr[ii] * bd[8 * mm]);
+      } else {
+        const float* tb = Tb + rr[ii] * ldt;
+        const int rel = j0 + c - i0 - rr[ii];  // j - i of key group 0
+#pragma unroll
+        for (int mm = 0; mm < 8; ++mm)
+          S[ii][mm] = fmaf(S[ii][mm], 0.125f, tb[min(max(rel + 8 * mm, -left), right) + left]);
+      }
 #pragma unroll
       for (int mm = 0; mm < 8; ++mm) {
-        float s = fmaf(S[ii][mm], 0.125f, gr[ii] * bd[8 * mm]);
-        if (edge && j0 + c + 8 * mm >= L) s = -INFINITY;
-        S[ii][mm] = s;
-        mx = fmaxf(mx, s);
+        if (edge && j0 + c + 8 * mm >= L) S[ii][mm] = -INFINITY;
+        mx = fmaxf(mx, S[ii][mm]);
       }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -359,10 +456,39 @@ __global__ void __launch_bounds__(THREADS, 3)
   }
 }
 
+__global__ void __launch_bounds__(THREADS, 3)
+    gated_attention_kernel(const float* __restrict__ x, const float* __restrict__ q,
+                           const float* __restrict__ k, const float* __restrict__ v,
+                           const float* __restrict__ gw, const float* __restrict__ gb,
+                           const float* __restrict__ gc, const float* __restrict__ emb,
+                           const int* __restrict__ buckets, const int* __restrict__ lengths,
+                           float* __restrict__ out, unsigned long long* __restrict__ pairs,
+                           int T, int H, int R, int xsb, int xsr,
+                           int qsb, int qsr, int ksb, int ksr, int vsb, int vsr) {
+  attention_block<GATED>(x, q, k, v, gw, gb, gc, emb, buckets, lengths, out, pairs, T, H, R, 0, 0,
+                         xsb, xsr, qsb, qsr, ksb, ksr, vsb, vsr);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+    relkey_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dist,
+                            const int* __restrict__ lengths, float* __restrict__ out,
+                            unsigned long long* __restrict__ pairs, int T, int H, int left,
+                            int right, int qsb, int qsr, int ksb, int ksr, int vsb, int vsr) {
+  attention_block<RELKEY>(nullptr, q, k, v, nullptr, nullptr, nullptr, dist, nullptr, lengths, out,
+                          pairs, T, H, 0, left, right, 0, 0, qsb, qsr, ksb, ksr, vsb, vsr);
+}
+
 // Shared memory a block needs for T frames.
 int smem_bytes(int T) {
   const int n_keys = (T + BK - 1) / BK * BK;
   return (int)sizeof(float) * (3 * BQ * LD + BQ * LDP + n_keys + BQ - 1);
+}
+
+// Shared memory a relative-key block needs for nrel distances: the table
+// and D in place of the bias vector.
+int relkey_smem_bytes(int nrel) {
+  return (int)sizeof(float) * (3 * BQ * LD + BQ * LDP + BQ * rel_stride(nrel) + nrel * LD);
 }
 
 }  // namespace
@@ -388,5 +514,28 @@ extern "C" int gated_attention_launch(const void* x, const void* q, const void* 
       (const float*)x, (const float*)q, (const float*)k, (const float*)v, (const float*)gw,
       (const float*)gb, (const float*)gc, (const float*)emb, (const int*)buckets,
       (const int*)lengths, (float*)out, (unsigned long long*)pairs, T, H, R, xsb, xsr, qsb, qsr, ksb, ksr, vsb, vsr);
+  return (int)cudaGetLastError();
+}
+
+// q, k, v: [B, T, H x 64] float32 views as gated_attention_launch takes
+// them; dist [left + right + 1, 64] float32, contiguous and 16-byte
+// aligned, at most NREL_MAX rows; lengths [B] int32 frames; out [B, T,
+// H x 64]; pairs null, or a uint64 the kernel adds the pairs it multiplied
+// to.
+extern "C" int relkey_attention_launch(const void* q, const void* k, const void* v,
+                                       const void* dist, const void* lengths, void* out,
+                                       void* pairs, int B, int T, int H, int left, int right,
+                                       int qsb, int qsr, int ksb, int ksr, int vsb, int vsr,
+                                       void* stream) {
+  if (B < 1 || T < 1 || H < 1 || left < 0 || right < 0 || left + right + 1 > NREL_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int bytes = relkey_smem_bytes(left + right + 1);
+  cudaError_t err = cudaFuncSetAttribute(relkey_attention_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  relkey_attention_kernel<<<dim3((T + BQ - 1) / BQ, H, B), THREADS, bytes,
+                            (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dist, (const int*)lengths,
+      (float*)out, (unsigned long long*)pairs, T, H, left, right, qsb, qsr, ksb, ksr, vsb, vsr);
   return (int)cudaGetLastError();
 }

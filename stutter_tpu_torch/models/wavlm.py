@@ -487,7 +487,9 @@ class Encoder:
 
                     self.replicas[device] = load_wavlm(self.cfg.weights, self.cfg, device)
                 else:
-                    self.replicas[device] = init_params(self.cfg, device)
+                    from stutter_tpu_torch.models import encoder_module
+
+                    self.replicas[device] = encoder_module(self.cfg).init_params(self.cfg, device)
             return self.replicas[device]
 
 

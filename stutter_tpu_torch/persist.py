@@ -8,8 +8,9 @@ there serve here unchanged:
   model_<arch>.npz            a sequence head's params (flattened names)
   model_<arch>_norm.npz       its per-feature mean / std
   model_<arch>.json           {"arch", "classes", "kind"}
-  <name>.npz                  a WavLM encoder's weights under the
-                              checkpoint's parameter names (save_wavlm)
+  <name>.npz                  a WavLM or W2V-BERT encoder's weights under
+                              the checkpoint's parameter names
+                              (save_wavlm)
 and, where sklearn and joblib are installed, the reference's pickles
 (scaler_after.pkl, label_encoder.pkl, model_rf.pkl).
 """
@@ -89,20 +90,20 @@ def load_mlp(path: str | Path, device: torch.device | str = "cuda") -> SeedMLP:
 
 
 def save_wavlm(path: str | Path, params: dict) -> None:
-    """A WavLM encoder's weights (models/wavlm.py: name -> tensor, the
-    checkpoint's names) as one .npz, float32."""
+    """A speech encoder's weights (models/wavlm.py, models/w2v_bert.py:
+    name -> tensor, the checkpoint's names) as one .npz, float32."""
     np.savez(str(path), **{k: v.detach().cpu().numpy().astype(np.float32)
                            for k, v in params.items()})
 
 
 def load_wavlm(path: str | Path, cfg, device: torch.device | str = "cuda") -> dict:
     """The .npz of save_wavlm -> {name: tensor on `device`}; raises unless
-    it holds exactly the parameters of `cfg` (a WavLMConfig), shape for
-    shape."""
-    from stutter_tpu_torch.models.wavlm import param_shapes
+    it holds exactly the parameters of `cfg` (a WavLMConfig, or a
+    W2VBertConfig: models.encoder_module's param_shapes), shape for shape."""
+    from stutter_tpu_torch.models import encoder_module
 
     device = resolve_device(device)
-    shapes = param_shapes(cfg)
+    shapes = encoder_module(cfg).param_shapes(cfg)
     with np.load(str(path)) as z:
         got = {k: tuple(z[k].shape) for k in z.files}
         if got != shapes:

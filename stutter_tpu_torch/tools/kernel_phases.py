@@ -24,14 +24,16 @@ mean and variance).  The phases are found
 by text in the sources: when a source changes, a phase whose text is gone
 stops the run, and its pattern here is brought up to date.
 
-With --attention it times WavLM's attention core (csrc/gated_attention.cu)
-at ATTENTION_SHAPES -- the corpus cell's fitted batches of 64 at T_pad 45,
-136 and 440, 9 rows at 440, one request at 511, ragged lengths and a clip
-of no frames -- beside its bound (the benchmark's counted FP32 operations
-over 67 TFLOP/s), the plain version (gated_attention_plain) and
-F.scaled_dot_product_attention on the same inputs (a yardstick the port
-never calls), with the kernels each call launched and the device memory
-it allocated: one JSON line a shape.
+With --attention it times each mode of csrc/gated_attention.cu
+(ATTENTION_MODES: WavLM's gated attention core, models/wavlm
+.gated_attention, then W2V-BERT 2.0's relative-key one, models/w2v_bert
+.relkey_attention) at ATTENTION_SHAPES -- the corpus cells' fitted
+batches of 64 at T_pad 45, 136 and 440, 9 rows at 440, one request at
+511, ragged lengths and a clip of no frames -- beside its bound (the benchmark's counted FP32 operations
+over 67 TFLOP/s), the plain version and F.scaled_dot_product_attention on
+the bias and mask the plain version builds (a yardstick the port never
+calls), with the kernels each call launched and the device memory it
+allocated: one JSON line a mode and shape (`"mode"`).
 
 With --stats it instead times each kernel of the stats-mode wrapper at
 B=256 x 3 s, at the MLP stream's [64, 48128] and at one 3 s request (only
@@ -401,125 +403,167 @@ ATTENTION_SHAPES = ((64, 45), (64, 136), (64, 440), (9, 440), (1, 511))
 FP32_RATE = 67e12  # one H100 SXM's FP32 FLOP/s outside the tensor cores
 
 
-def attention_inputs(B: int, T: int, seed: int, device, cfg=None):
-    """Layer 0's attention core at `cfg`'s widths (WavLM-Large's by
-    default): weights (the gate's linear, its constants, the bucket
-    embedding) and x [B, T, D]; q, k, v as [B, T, D] slices of one
-    [B, T, 3 D] tensor (the kernel reads them by strides); each clip's
-    frames, ragged in [0.6 T, T], the first T, and with B > 1 the last a
-    clip of no frames -> (p, cfg, x, q, k, v, frames int32)."""
+# csrc/gated_attention.cu's modes -> (the model module, its attention core)
+ATTENTION_MODES = {"gated": ("wavlm", "gated_attention"), "relkey": ("w2v_bert", "relkey_attention")}
+
+
+def attention_model(mode: str):
+    """`mode`'s model module and the name of its attention core there: the
+    core is <name> (on a CUDA tensor the kernel, on a CPU tensor the plain
+    version), its launch _<name>_cuda, its plain version <name>_plain, and
+    the module's _LAUNCHES counts the launches."""
+    import importlib
+
+    module, name = ATTENTION_MODES[mode]
+    return importlib.import_module(f"stutter_tpu_torch.models.{module}"), name
+
+
+def attention_inputs(B: int, T: int, seed: int, device, cfg=None, mode: str = "gated"):
+    """Layer 0's attention core of `mode` at `cfg`'s widths (WavLM-Large's
+    for "gated", W2V-BERT 2.0's for "relkey", by default): its weights
+    (the bucket embedding and the gate's; the distance_embedding), the
+    activations the core takes (x, q, k, v; q, k, v), q, k, v as [B, T, D]
+    slices of one [B, T, 3 D] tensor, and each clip's frames: the first
+    clip T, the last (B > 1) none, the rest drawn in [0.6 T, T] -> (p, cfg,
+    *activations, frames int32)."""
     import numpy as np
     import torch
 
-    from stutter_tpu_torch.config import WavLMConfig
-    from stutter_tpu_torch.models import wavlm as W
+    from stutter_tpu_torch.config import W2VBertConfig, WavLMConfig
 
-    cfg = cfg or WavLMConfig()
+    M, _ = attention_model(mode)
+    cfg = cfg or (WavLMConfig() if mode == "gated" else W2VBertConfig())
     D, H = cfg.hidden_size, cfg.num_attention_heads
     g = torch.Generator().manual_seed(seed)
-    pre = W.LAYER.format(0) + "attention."
-    p = {pre + "rel_attn_embed.weight": torch.randn(cfg.num_buckets, H, generator=g),
-         pre + "gru_rel_pos_linear.weight": 0.1 * torch.randn(W.GATE_DIM, D // H, generator=g),
-         pre + "gru_rel_pos_linear.bias": 0.1 * torch.randn(W.GATE_DIM, generator=g),
-         pre + "gru_rel_pos_const": 1 + 0.5 * torch.randn(1, H, 1, 1, generator=g)}
+    if mode == "gated":
+        pre = M.LAYER.format(0) + "attention."
+        p = {pre + "rel_attn_embed.weight": torch.randn(cfg.num_buckets, H, generator=g),
+             pre + "gru_rel_pos_linear.weight": 0.1 * torch.randn(M.GATE_DIM, D // H, generator=g),
+             pre + "gru_rel_pos_linear.bias": 0.1 * torch.randn(M.GATE_DIM, generator=g),
+             pre + "gru_rel_pos_const": 1 + 0.5 * torch.randn(1, H, 1, 1, generator=g)}
+        acts = (torch.randn(B, T, D, generator=g).to(device),)
+    else:
+        nrel = cfg.left_max_position_embeddings + cfg.right_max_position_embeddings + 1
+        p = {M.LAYER.format(0) + "self_attn.distance_embedding.weight":
+             torch.randn(nrel, D // H, generator=g)}
+        acts = ()
     p = {k: t.to(device) for k, t in p.items()}
-    x = torch.randn(B, T, D, generator=g).to(device)
     q, k, v = torch.randn(B, T, 3 * D, generator=g).to(device).split(D, dim=-1)
     rng = np.random.RandomState(seed)
     frames = rng.randint(max(1, int(0.6 * T)), T + 1, B)
     frames[0] = T
     if B > 1:
         frames[-1] = 0
-    return p, cfg, x, q, k, v, torch.tensor(frames, dtype=torch.int32, device=device)
+    return (p, cfg, *acts, q, k, v, torch.tensor(frames, dtype=torch.int32, device=device))
 
 
 def attention_ops(frames, cfg) -> float:
-    """FP32 operations of the attention core over clips of these frames, as
-    the benchmark counts them (benchmark/counts/wavlm.py attention, which a
-    CPU test holds this to): the gate, 8 a score for the bias, scale and
-    softmax, 2 x 2 x d a pair."""
+    """FP32 operations of the attention core of `cfg`'s model over clips of
+    these frames, as the benchmark counts them (the attention of
+    benchmark/counts/wavlm.py and counts/w2v_bert.py, which CPU tests hold
+    this to): a row's term -- WavLM's gate, or W2V-BERT's table of q . D
+    over the left + right + 1 distances a head --, 8 a score for the bias,
+    mask, scale and softmax, 2 x 2 x d a pair."""
+    from stutter_tpu_torch.config import W2VBertConfig
+
     d, h = cfg.hidden_size, cfg.num_attention_heads
-    return float(sum(int(t) * h * (2 * (d // h) * 8 + 18) + h * int(t) ** 2 * 8
-                     + 4 * int(t) ** 2 * d for t in frames))
+    if isinstance(cfg, W2VBertConfig):
+        row = 2 * d * (cfg.left_max_position_embeddings + cfg.right_max_position_embeddings + 1)
+    else:
+        row = h * (2 * (d // h) * 8 + 18)
+    return float(sum(int(t) * row + h * int(t) ** 2 * 8 + 4 * int(t) ** 2 * d for t in frames))
 
 
-def attention_check(B: int, T: int, dev) -> dict:
-    """The kernel once at (B, T) on attention_inputs, against
-    gated_attention_plain on the CPU: the worst gap |got - ref| / (1 +
-    |ref|) over each clip's rows i < max(T_b, 1), whether every row past
-    them is zero, the launches the call counted and the device memory it
-    allocated beyond its output (the plain version's [B, heads, T, T]
-    float32 tensor beside it); then the pairs the kernel reports it
-    multiplied on a second call, beside attn_pairs_run x heads, and whether
-    that call's output is the first's bit for bit -> a dict, with the
-    inputs under "inputs"."""
+def attention_check(B: int, T: int, dev, mode: str = "gated") -> dict:
+    """`mode`'s kernel once at (B, T) on attention_inputs, against its plain
+    version on the CPU: the worst gap |got - ref| / (1 + |ref|) over each
+    clip's rows i < max(T_b, 1), whether every row past them is zero, the
+    launches the call counted and the device memory it allocated beyond
+    its output (the plain version's [B, heads, T, T] float32 tensor beside
+    it); then the pairs the kernel reports it multiplied on a second call,
+    beside attn_pairs_run x heads, and whether that call's output is the
+    first's bit for bit -> a dict, with the inputs under "inputs"."""
     import torch
 
-    from stutter_tpu_torch.models import wavlm as W
+    from stutter_tpu_torch.models.wavlm import attn_pairs_run
 
-    inputs = attention_inputs(B, T, B * 1000 + T, dev)
-    p, cfg, x, q, k, v, frames = inputs
-    W.gated_attention(p, 0, x, q, k, v, frames, cfg)  # builds and caches the bucket vector
+    M, name = attention_model(mode)
+    core, cuda, plain = (getattr(M, name), getattr(M, f"_{name}_cuda"),
+                         getattr(M, f"{name}_plain"))
+    inputs = attention_inputs(B, T, B * 1000 + T + (7 if mode == "relkey" else 0), dev, mode=mode)
+    p, cfg, *acts = inputs
+    frames = acts[-1]
+    core(p, 0, *acts, cfg)  # builds and caches what a first call builds
     torch.cuda.synchronize()
-    before, base = W.gated_attention.launches, torch.cuda.memory_allocated(dev)
+    before, base = M._LAUNCHES.launches, torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    got = W.gated_attention(p, 0, x, q, k, v, frames, cfg)
+    got = core(p, 0, *acts, cfg)
     torch.cuda.synchronize()
-    launches = W.gated_attention.launches - before
+    launches = M._LAUNCHES.launches - before
     extra = torch.cuda.max_memory_allocated(dev) - base - got.numel() * 4
     pairs = torch.zeros(1, dtype=torch.int64, device=dev)
-    counted = W._gated_attention_cuda(p, 0, x, q, k, v, frames, cfg, pairs=pairs)
-    ref = W.gated_attention_plain({n: t.cpu() for n, t in p.items()}, 0,
-                                  *(t.cpu() for t in (x, q, k, v, frames)), cfg)
+    counted = cuda(p, 0, *acts, cfg, pairs=pairs)
+    ref = plain({n: t.cpu() for n, t in p.items()}, 0, *(t.cpu() for t in acts), cfg)
     got, gap, zero = got.cpu(), 0.0, True
     for b, n in enumerate(frames.tolist()):
         n = max(n, 1)
         gap = max(gap, float(((got[b, :n] - ref[b, :n]).abs() / (1 + ref[b, :n].abs())).max()))
         zero = zero and not bool(got[b, n:].any())
-    return {"shape": [B, T], "frames": [int(frames.min()), int(frames.max())], "gap": gap,
-            "padded_rows_zero": zero, "launches": launches, "pairs": int(pairs.item()),
-            "counted_call_equal": bool(torch.equal(counted.cpu(), got)),
-            "pairs_run": cfg.num_attention_heads * W.attn_pairs_run(frames.cpu()),
+    return {"mode": mode, "shape": [B, T], "frames": [int(frames.min()), int(frames.max())],
+            "gap": gap, "padded_rows_zero": zero, "launches": launches,
+            "pairs": int(pairs.item()), "counted_call_equal": bool(torch.equal(counted.cpu(), got)),
+            "pairs_run": cfg.num_attention_heads * attn_pairs_run(frames.cpu()),
             "pairs_valid": int((frames.long() ** 2).sum()), "extra_bytes": int(extra),
             "btt_bytes": B * cfg.num_attention_heads * T * T * 4, "inputs": inputs}
 
 
-def sdpa_call(p, cfg, x, q, k, v, frames):
+def sdpa_call(p, cfg, *acts):
     """F.scaled_dot_product_attention on [B, heads, T, head_dim] views of q,
-    k, v and the gated bias + key mask the plain version builds, made once:
+    k, v and the bias + key mask the plain version of cfg's model builds
+    (WavLM's gated position bias, W2V-BERT's relative-key term), made once:
     the library's attention as a yardstick (the port never calls it on the
     card) -> a function of no argument."""
     import torch
     import torch.nn.functional as F
 
-    from stutter_tpu_torch.models import wavlm as W
+    from stutter_tpu_torch.config import W2VBertConfig
+    from stutter_tpu_torch.models import w2v_bert, wavlm
 
-    B, T, _ = x.shape
+    *_, q, k, v, frames = acts
+    B, T, _ = q.shape
     H = cfg.num_attention_heads
-    valid = W._valid(frames.long(), T) | (torch.arange(T, device=x.device) == 0)[None, :]
-    mask = (W.bias_gate(p, 0, x, H)[..., None] * W.position_bias(p, T, cfg, x.device)
-            + W.key_mask(valid))
     q4, k4, v4 = (t.reshape(B, T, H, -1).transpose(1, 2) for t in (q, k, v))
+    if isinstance(cfg, W2VBertConfig):
+        idx = w2v_bert.distance_index(T, cfg.left_max_position_embeddings,
+                                      cfg.right_max_position_embeddings, q.device)
+        dist = p[w2v_bert.LAYER.format(0) + "self_attn.distance_embedding.weight"]
+        bias = w2v_bert.rel_key_scores(q4, dist, idx)
+    else:
+        bias = (wavlm.bias_gate(p, 0, acts[0], H)[..., None]
+                * wavlm.position_bias(p, T, cfg, q.device))
+    valid = wavlm._valid(frames.long(), T) | (torch.arange(T, device=q.device) == 0)[None, :]
+    mask = bias + wavlm.key_mask(valid)
     return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
 
 
 def attention_times(dev, card: str) -> None:
-    """At each of ATTENTION_SHAPES, attention_check and the device ms a call
-    (torch.profiler) of the kernel, the plain version and SDPA (sdpa_call),
-    beside the bound."""
-    from stutter_tpu_torch.models import wavlm as W
-
-    for B, T in ATTENTION_SHAPES:
-        res = attention_check(B, T, dev)
-        p, cfg, x, q, k, v, frames = inputs = res.pop("inputs")
-        kernel = kernel_times(lambda: W.gated_attention(p, 0, x, q, k, v, frames, cfg))
-        plain = kernel_times(lambda: W.gated_attention_plain(p, 0, x, q, k, v, frames, cfg))
-        sdpa = kernel_times(sdpa_call(*inputs))
-        ops = attention_ops(frames.tolist(), cfg)
-        print(json.dumps({
-            **res, "kernel_ms": sum(kernel.values()), "kernels": sorted(kernel),
-            "plain_ms": sum(plain.values()), "sdpa_ms": sum(sdpa.values()),
-            "bound_ms": ops / FP32_RATE * 1e3, "flops": ops, "card": card}), flush=True)
+    """For each mode, at each of ATTENTION_SHAPES, attention_check and the
+    device ms a call (torch.profiler) of the kernel, the plain version and
+    SDPA (sdpa_call), beside the bound."""
+    for mode in ATTENTION_MODES:
+        M, name = attention_model(mode)
+        core, plain = getattr(M, name), getattr(M, f"{name}_plain")
+        for B, T in ATTENTION_SHAPES:
+            res = attention_check(B, T, dev, mode)
+            p, cfg, *acts = inputs = res.pop("inputs")
+            kernel = kernel_times(lambda: core(p, 0, *acts, cfg))
+            plain_ms = kernel_times(lambda: plain(p, 0, *acts, cfg))
+            sdpa = kernel_times(sdpa_call(*inputs))
+            ops = attention_ops(acts[-1].tolist(), cfg)
+            print(json.dumps({
+                **res, "kernel_ms": sum(kernel.values()), "kernels": sorted(kernel),
+                "plain_ms": sum(plain_ms.values()), "sdpa_ms": sum(sdpa.values()),
+                "bound_ms": ops / FP32_RATE * 1e3, "flops": ops, "card": card}), flush=True)
 
 
 def main(argv=None) -> int:

@@ -621,3 +621,53 @@ def test_gated_attention_kernel_rejects_what_it_does_not_take(cuda):
         2, 45, 7, cuda, WavLMConfig(hidden_size=256, num_attention_heads=16))
     with pytest.raises(ValueError, match="heads x 64"):
         W.gated_attention(p16, 0, *acts, f16, narrow)
+
+
+@pytest.mark.parametrize("B,T", [(64, 45), (64, 136), (64, 440), (9, 440), (1, 511)])
+def test_relkey_attention_kernel_matches_plain(cuda, B, T):
+    """The kernel's relative-key mode (W2V-BERT 2.0's attention core) at
+    the corpus cell's fitted batches, their last 9 rows and one request, q,
+    k, v read by strides from one [B, T, 3072] tensor, ragged clips and one
+    of no frames: every row i < max(T_b, 1) within 1e-5 of
+    relkey_attention_plain on the CPU, every row past it zero, one launch a
+    call, no device memory beyond the output (no [B, 16, T, T] tensor),
+    and the pairs the kernel reports it multiplied equal to attn_pairs_run
+    x heads, the counted call's output the same bit for bit."""
+    from stutter_tpu_torch.tools.kernel_phases import attention_check
+
+    res = attention_check(B, T, cuda, "relkey")
+    assert res["gap"] <= 1e-5, res["gap"]
+    assert res["padded_rows_zero"]
+    assert res["launches"] == 1
+    assert res["extra_bytes"] <= 1 << 20
+    assert res["pairs"] == res["pairs_run"] and res["counted_call_equal"]
+
+
+def test_relkey_attention_kernel_rejects_what_it_does_not_take(cuda):
+    """A CUDA tensor of another dtype or layout raises instead of running:
+    float64 q, a q whose last stride is not 1, a q off 16-byte alignment,
+    int64 frames, more than 80 distances, and a head width of 16."""
+    import dataclasses
+
+    from stutter_tpu_torch.config import W2VBertConfig
+    from stutter_tpu_torch.models import w2v_bert as W
+    from stutter_tpu_torch.tools.kernel_phases import attention_inputs
+
+    p, cfg, q, k, v, frames = attention_inputs(2, 45, 7, cuda, mode="relkey")
+    wide = torch.randn(2, 45, 1025, device=cuda)
+    bad = {"float64": dict(q=q.double()),
+           "last stride": dict(q=torch.randn(2, 1024, 45, device=cuda).transpose(1, 2)),
+           "alignment": dict(q=wide[..., 1:]),
+           "int64 frames": dict(frames=frames.long())}
+    for what, swap in bad.items():
+        args = {**dict(q=q, k=k, v=v, frames=frames), **swap}
+        with pytest.raises(ValueError):
+            W.relkey_attention(p, 0, args["q"], args["k"], args["v"], args["frames"], cfg)
+    far = dataclasses.replace(cfg, left_max_position_embeddings=72)
+    p81, *_ = attention_inputs(2, 45, 7, cuda, far, "relkey")
+    with pytest.raises(ValueError, match="at most 80"):
+        W.relkey_attention(p81, 0, q, k, v, frames, far)
+    p16, narrow, *acts, f16 = attention_inputs(
+        2, 45, 7, cuda, W2VBertConfig(hidden_size=256, num_attention_heads=16), "relkey")
+    with pytest.raises(ValueError, match="heads x 64"):
+        W.relkey_attention(p16, 0, *acts, f16, narrow)
