@@ -138,21 +138,30 @@
    gate's three and spectromel_frames for the vote), one per launch of its
    wrapper as launch_counts reads them.
 12. The attention kernel (csrc/gated_attention.cu) in each of its modes,
-   WavLM's gated attention and W2V-BERT 2.0's relative-key attention,
-   after phase 2, from its own numpy seed: at the corpus cells' shapes
-   (fitted batches of 64 at T 45, 136 and 440, 9 rows at 440, one request
-   at 511; ragged clips, one of no frames), q, k and v read by strides,
-   each clip's rows within ATTN_TOL (1e-5, |got - ref| / (1 + |ref|)) of
-   the plain version on the CPU, the rows past its frames zero, one launch
-   a call, no device memory beyond the output, and the pairs the kernel
-   reports it multiplied equal to attn_pairs_run x heads; the kernel, the
-   plain version and SDPA on the plain version's mask timed beside the
-   bound (the benchmark's FP32 operations over 67 TFLOP/s).  Then one
+   WavLM's gated attention (padded rows) and W2V-BERT 2.0's relative-key
+   attention (each clip's rows packed, read from its offset), after phase
+   2, from its own numpy seed: at the corpus cells' shapes (fitted batches
+   of 64 at T 45, 136 and 440, 9 rows at 440, one request at 511; ragged
+   clips, one of no frames), q, k and v read by strides, each clip's rows
+   within ATTN_TOL (1e-5, |got - ref| / (1 + |ref|)) of the plain version
+   on the CPU, the padded rows past its frames zero, one launch a call,
+   no device memory beyond the output, and the pairs the kernel reports it
+   multiplied equal to attn_pairs_run x heads; the kernel, the plain
+   version and SDPA on the plain version's mask timed beside the bound
+   (the benchmark's FP32 operations over 67 TFLOP/s).  The conv module's
+   kernel (csrc/glu_depthwise.cu) at the same shapes' clips packed: within
+   ATTN_TOL of its plain version on the card, one launch a call, nothing
+   written past row R, timed (CUDA events and profiler device ms) beside
+   its plain version, the padded path's GLU and F.conv1d between two
+   transposes, and its bound (12 bytes a value over 3.35 TB/s).  Then one
    encode call of WavLM-Large and one of W2V-BERT 2.0 (weights drawn on
-   the card) on the same 9 clips of 0.01-10.24 s: 24 launches of the
-   model's mode and none of another kernel, the kernel's device time in it
-   beside the bound of that call's frames, and the embeddings finite (the
-   clip of no frame's zero).
+   the card) on the same 9 clips of 0.01-10.24 s: 24 launches of each of
+   the model's kernels (W2V-BERT: the relative-key mode and the conv
+   kernel) and none of another, the kernels' device time in it beside the
+   bound of that call's frames, and the embeddings finite (the clip of no
+   frame's zero); in W2V-BERT's call no depthwise conv of ATen's or
+   cuDNN's, and one conv module call's kernels hold the conv kernel and no
+   copy.
 13. Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
 
 Phase 2 also holds the kernels at the stream paths' shapes: the vote's
@@ -193,7 +202,8 @@ import time
 import numpy as np
 
 SR = 16000
-LIBRARIES = ("spectromel", "chroma_stats", "spectral_gate", "gated_attention")  # csrc/<name>.cu
+LIBRARIES = ("spectromel", "chroma_stats", "spectral_gate", "gated_attention",
+             "glu_depthwise")  # csrc/<name>.cu
 KERNELS = {  # kernel (mode) -> (source, the TPU kernel it replaces, or None)
     "spectromel": ("stutter_tpu_torch/csrc/spectromel.cu",
                    "stutter_tpu/ops/pallas_spectromel.py:409"),
@@ -207,6 +217,8 @@ KERNELS = {  # kernel (mode) -> (source, the TPU kernel it replaces, or None)
     # kernel: the JAX package has neither model
     "gated_attention": ("stutter_tpu_torch/csrc/gated_attention.cu", None),
     "relkey_attention": ("stutter_tpu_torch/csrc/gated_attention.cu", None),
+    # W2V-BERT's conv module core (GLU and causal depthwise conv, packed rows)
+    "glu_depthwise": ("stutter_tpu_torch/csrc/glu_depthwise.cu", None),
 }
 # the front end's kernels, which every featurizing path launches
 FRONT_END_KERNELS = ("spectromel", "spectromel_mel", "chroma_stats", "spectral_gate")
@@ -344,7 +356,8 @@ def launch_counts(reset: bool = False) -> dict:
                 "chroma_stats": (chroma_stats, "launches"),
                 "spectral_gate": (spectral_gate, "launches"),
                 "gated_attention": (wavlm.gated_attention, "launches"),
-                "relkey_attention": (w2v_bert.relkey_attention, "launches")}
+                "relkey_attention": (w2v_bert.relkey_attention, "launches"),
+                "glu_depthwise": (w2v_bert.glu_depthwise, "launches")}
     counts = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
     if reset:
         for obj, attr in counters.values():
@@ -2129,22 +2142,44 @@ def profiling_main() -> int:
     return 0
 
 
+def kernel_names(fn) -> list:
+    """The full names of the device kernels one call of `fn` launches
+    (torch.profiler, profile_window's burst left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from stutter_tpu_torch.utils.profiling import BURST_KERNEL, profile_window
+
+    fn()
+    torch.cuda.synchronize()
+    with profile_window([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation and BURST_KERNEL not in e.name})
+
+
 def attention_phase(rng, dev) -> dict:
     """Phase 12: each mode of csrc/gated_attention.cu (WavLM's gated
-    attention, models/wavlm.gated_attention; W2V-BERT 2.0's relative-key
-    attention, models/w2v_bert.relkey_attention) at the corpus cells'
-    shapes (kernel_phases.ATTENTION_SHAPES), each held to the plain version
-    on the CPU and timed beside it, SDPA and the bound; then one encode
-    call of WavLM-Large and one of W2V-BERT 2.0 (drawn weights) on
-    ENCODE_S's clips, each one's launches counted from just before it to
-    just after it -> {kernel: {"shapes", "encode"}}."""
+    attention on padded rows, models/wavlm.gated_attention; W2V-BERT 2.0's
+    relative-key attention on packed rows, models/w2v_bert.relkey_attention)
+    at the corpus cells' shapes (kernel_phases.ATTENTION_SHAPES), each held
+    to the plain version on the CPU and timed beside it, SDPA and the bound;
+    csrc/glu_depthwise.cu (models/w2v_bert.glu_depthwise) at the same
+    shapes' clips, held to its plain version on the card and timed beside
+    it, the padded path's F.conv1d and the bound; then one encode call of
+    WavLM-Large and one of W2V-BERT 2.0 (drawn weights) on ENCODE_S's
+    clips, each one's launches counted from just before it to just after
+    it, and one W2V-BERT conv module call's kernels -> {kernel: {"shapes",
+    "encode"}}."""
     import torch
 
     from stutter_tpu_torch.config import W2VBertConfig, WavLMConfig
-    from stutter_tpu_torch.models import encoder_module
+    from stutter_tpu_torch.models import encoder_module, w2v_bert
     from stutter_tpu_torch.tools.kernel_phases import (
         ATTENTION_MODES, ATTENTION_SHAPES, attention_check, attention_model, attention_ops,
-        sdpa_call)
+        clip_frames, conv1d_call, conv_bound, conv_check, frames_of, kernel_times, sdpa_call)
 
     res = {}
     for mode in ATTENTION_MODES:
@@ -2154,7 +2189,7 @@ def attention_phase(rng, dev) -> dict:
         for B, T in ATTENTION_SHAPES:
             r = attention_check(B, T, dev, mode)
             p, cfg, *acts = inputs = r.pop("inputs")
-            frames = acts[-1]
+            frames = frames_of(acts[-1])
             what = f"{kernel} B={B} T={T}"
             check(r["gap"] <= ATTN_TOL, f"{what}: {r['gap']:.2e} from the plain version")
             check(r["padded_rows_zero"], f"{what}: a row past a clip's frames is not zero")
@@ -2172,16 +2207,40 @@ def attention_phase(rng, dev) -> dict:
             res[kernel]["shapes"][f"{B}x{T}"] = r
             del inputs, p, acts, frames
 
+    res["glu_depthwise"] = {"tolerance": ATTN_TOL, "shapes": {}}
+    for B, T in ATTENTION_SHAPES:
+        r = conv_check(clip_frames(B, T, B * 1000 + T), dev)
+        x, w, clips = r.pop("inputs")
+        what = f"glu_depthwise B={B} T={T}"
+        check(r["gap"] <= ATTN_TOL, f"{what}: {r['gap']:.2e} from the plain version")
+        check(r["launches"] == 1, f"{what}: {r['launches']} launches a call")
+        check(r["extra_bytes"] <= 1 << 20, f"{what}: {r['extra_bytes']} bytes beyond the output")
+        check(not r["written_past_rows"] and r["again_equal"],
+              f"{what}: written past row R {r['written_past_rows']}, again equal {r['again_equal']}")
+        lib = conv1d_call(x, w, clips)
+        dev_ms = {k: sum(kernel_times(f).values()) for k, f in (
+            ("kernel", lambda: w2v_bert.glu_depthwise(x, w, clips)),
+            ("plain", lambda: w2v_bert.glu_depthwise_plain(x, w, clips)), ("library", lib))}
+        r.update(conv_bound(r["rows"], w.shape[0], w.shape[-1]), B=B,
+                 ms=time_ms(lambda: w2v_bert.glu_depthwise(x, w, clips)),
+                 plain_ms=time_ms(lambda: w2v_bert.glu_depthwise_plain(x, w, clips)),
+                 library_ms=time_ms(lib), device_ms=dev_ms["kernel"],
+                 plain_device_ms=dev_ms["plain"], library_device_ms=dev_ms["library"])
+        res["glu_depthwise"]["shapes"][f"{B}x{T}"] = r
+        del x, w, clips, lib
+
     lengths = [int(s * SR) for s in ENCODE_S]
     audio = np.zeros((len(lengths), max(lengths)), np.float32)
     for i, n in enumerate(lengths):
         audio[i, :n] = structured_clips(rng, 1, n)[0]
     a, n = torch.from_numpy(audio).to(dev), torch.tensor(lengths, device=dev)
     # (kernel, model, config, the activations each layer's core reads and
-    # writes: x, q, k, v and the output; q, k, v and the output)
-    encoders = (("gated_attention", "WavLM-Large", WavLMConfig(), 5),
-                ("relkey_attention", "W2V-BERT 2.0", W2VBertConfig(), 4))
-    for kernel, model, cfg, tensors in encoders:
+    # writes: x, q, k, v and the output; q, k, v and the output; the
+    # model's kernels, each once a layer)
+    encoders = (("gated_attention", "WavLM-Large", WavLMConfig(), 5, ("gated_attention",)),
+                ("relkey_attention", "W2V-BERT 2.0", W2VBertConfig(), 4,
+                 ("relkey_attention", "glu_depthwise")))
+    for kernel, model, cfg, tensors, kernels in encoders:
         M = encoder_module(cfg)
         p = M.encoder_for(cfg).params(dev)
         M.encode(p, a, n, cfg)  # the bucket vector, cuDNN's algorithms
@@ -2191,9 +2250,10 @@ def attention_phase(rng, dev) -> dict:
         torch.cuda.synchronize()
         launches = launch_counts(reset=True)
         what = f"{kernel}: encode"
-        check(launches[kernel] == cfg.num_hidden_layers,
-              f"{what}: {launches[kernel]} attention launches, {cfg.num_hidden_layers} layers")
-        check(sum(launches.values()) == launches[kernel], f"{what}: other launches {launches}")
+        check(all(launches[k] == cfg.num_hidden_layers for k in kernels),
+              f"{what}: {launches}, {cfg.num_hidden_layers} layers")
+        check(sum(launches.values()) == sum(launches[k] for k in kernels),
+              f"{what}: other launches {launches}")
         check(bool(torch.isfinite(emb).all()) and not emb[0].any(),
               f"{what}: an embedding not finite, or the clip of no frame's not zero")
         frames = [int(M.frame_lengths(x, cfg) if kernel == "gated_attention"
@@ -2204,6 +2264,24 @@ def attention_phase(rng, dev) -> dict:
             "ms": dev_ms.get(f"{kernel}_kernel", 0.0), "encode_device_ms": sum(dev_ms.values()),
             **bound(cfg.num_hidden_layers * 4 * tensors * cfg.hidden_size * sum(frames),
                     cfg.num_hidden_layers * attention_ops(frames, cfg))}
+        if kernel == "relkey_attention":
+            # the conv module: its kernel in place of ATen's depthwise conv
+            # and the two transposing copies around it
+            names = kernel_names(lambda: M.encode(p, a, n, cfg))
+            check(not any("conv_depthwise" in k for k in names),
+                  f"{what}: a depthwise conv of ATen's or cuDNN's: {names}")
+            clips = M.pack_clips(frames, dev)
+            h = torch.randn(sum(frames), cfg.hidden_size, device=dev)
+            conv = kernel_names(lambda: M.conv_module(p, 0, h, clips, cfg))
+            check(any("glu_depthwise_kernel" in k for k in conv)
+                  and not any("copy" in k or "conv_depthwise" in k or "transpose" in k
+                              for k in conv), f"{what}: the conv module's kernels {conv}")
+            total = sum(frames) * cfg.num_hidden_layers
+            res["glu_depthwise"]["encode"] = {
+                "model": model, "clips": len(lengths), "frames": frames, "launches": launches,
+                "ms": dev_ms.get("glu_depthwise_kernel", 0.0), "conv_module_kernels": conv,
+                **conv_bound(total, cfg.hidden_size, cfg.conv_depthwise_kernel_size)}
+            del h, clips
         M.release()
         del p, emb
         torch.cuda.empty_cache()
@@ -2292,7 +2370,9 @@ def main() -> int:
         print(f"{kernel} in one {enc['model']} encode call of {enc['clips']} clips "
               f"({sum(enc['frames'])} frames): {enc['launches'][kernel]} launches, "
               f"{enc['ms']:.4f} ms of device time, bound {enc['bound_ms']:.5f} ms "
-              f"({enc['bound_by']}); the call {enc['encode_device_ms']:.3f} ms ({card})")
+              f"({enc['bound_by']})"
+              + (f"; the call {enc['encode_device_ms']:.3f} ms" if "encode_device_ms" in enc
+                 else f"; a conv module's kernels {enc['conv_module_kernels']}") + f" ({card})")
 
     with tempfile.TemporaryDirectory() as out_dir:  # phase 3: serving, 149-dim
         cfg149 = PipelineConfig()
@@ -2434,7 +2514,8 @@ def main() -> int:
              head["stream_vote"]["launches_one_pass"], head["stream_mlp"]["launches_one_pass"],
              head["launches_http"], train["launches"], train["serve"]["launches"],
              seq["launches"], seq["serve"]["launches"], par["launches"], timing["launches"],
-             *(res["encode"]["launches"] for res in attn.values())]
+             # W2V-BERT's one encode call holds both of its kernels' launches
+             *(res["encode"]["launches"] for k, res in attn.items() if k != "glu_depthwise")]
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
     # (name, max abs error, batch-shape result, request-shape result,
     # stream-shape result); no single PyTorch call computes any of these
@@ -2463,9 +2544,10 @@ def main() -> int:
                     for pre, t in (("", r), ("request_", q), ("stream_", w))
                     for k in ("ms", "bound_ms")} if "stats_launch" in r else {})}
                for n, err, r, q, w in rows]
-    # each mode of the attention kernel at the cells' largest batch and one
-    # request, SDPA on the same inputs as the library's call; every shape
-    # and the encode run
+    # each mode of the attention kernel and the conv module's kernel at the
+    # cells' largest batch and one request, SDPA (F.conv1d on the padded
+    # batch) on the same inputs as the library's call; every shape and the
+    # encode run
     for kernel, res in attn.items():
         ab, aq, enc = res["shapes"]["64x440"], res["shapes"]["1x511"], res["encode"]
         kernels.append({"name": kernel, "route": "cuda", "source": KERNELS[kernel][0],
@@ -2476,8 +2558,9 @@ def main() -> int:
                         "batch": ab["B"], "request_ms": aq["ms"],
                         "request_plain_ms": aq["plain_ms"], "request_bound_ms": aq["bound_ms"],
                         "shapes": {k: {f: r[f] for f in ("ms", "plain_ms", "library_ms",
-                                                         "bound_ms", "gap", "pairs",
-                                                         "pairs_valid")}
+                                                         "bound_ms", "gap", "pairs", "pairs_valid",
+                                                         "device_ms", "plain_device_ms",
+                                                         "library_device_ms") if f in r}
                                    for k, r in res["shapes"].items()},
                         "encode": {f: enc[f] for f in ("clips", "launches", "ms", "bound_ms")}})
     check(all(k["launches"] > 0 for k in kernels), f"a kernel never launched: {launches}")

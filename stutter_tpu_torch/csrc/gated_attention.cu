@@ -53,29 +53,37 @@
 //    8 outputs x 64) and held a row in registers.
 //
 // Given a counter (`pairs`, else null), each warp adds the query-key pairs
-// its threads multiplied in q k^T: what models/wavlm.attn_pairs_run counts
-// from the clips' frames, which a card test holds to this count.
+// its threads multiplied in q k^T: what models/wavlm.attn_pairs_run (the
+// second mode: models/w2v_bert.attn_pairs_run) counts from the clips'
+// frames, which a card test holds to this count.
 //
 // A second mode, `relkey_attention_kernel`, is W2V-BERT 2.0's relative-key
 // attention (models/w2v_bert.py; transformers' Wav2Vec2BertSelfAttention
 // with position_embeddings_type "relative_key"):
 //
 //   out[b, i, h] = softmax_j((q_i . k_j + q_i . D[clamp(j - i, -left,
-//                  right) + left]) / 8) v,  over keys j < max(L_b, 1),
+//                  right) + left]) / 8) v,  over keys j < L_b,
 //
 // where D [left + right + 1, 64] is the layer's distance_embedding, shared
-// by the heads (64 + 8 + 1 = 73 rows in the published model).  One template
-// body runs both modes, with the same tiling, cp.async pipeline, online
-// softmax, length bounds, zeroed padded rows and pairs counter; only the
-// bias differs.  A query row meets at most 73 distinct distances, so the
-// prologue fills a [64, 73] table of q_i . D_d / 8 from the q tile already
-// in shared memory and D, loaded beside it while the first key and value
-// tiles load, each thread 4 rows x 10 distances in registers as q k^T is
-// tiled; a score then costs one shared read of the table at its clamped
-// j - i.  That is 64 x 73 x 64 FMAs a block, under a fifth of q k^T's at
-// T = 440, and nothing of size T x T or B x T x 73 in device memory.  The
-// table and D take ~38 KB more shared memory than the gated mode's bias
-// vector: two blocks share an SM where the gated mode fits three.
+// by the heads (64 + 8 + 1 = 73 rows in the published model), over packed
+// rows: clip b's q, k, v and output rows are rows offsets[b] ..
+// offsets[b + 1] - 1 of [R, H x 64] tensors, so L_b = offsets[b + 1] -
+// offsets[b] and no padded row exists.  A block whose query tile starts at
+// or past its clip's frames (a clip of no frame included) returns at once
+// and writes nothing; rows past L_b in a tile are zero-filled on load (they
+// are the next clip's) and never written.  One template body runs both
+// modes, with the same tiling, cp.async pipeline, online softmax, length
+// bounds and pairs counter; only the bias and the rows' addressing differ
+// (the gated mode's padded layout, read by batch stride, is unchanged).  A
+// query row meets at most 73 distinct distances, so the prologue fills a
+// [64, 73] table of q_i . D_d / 8 from the q tile already in shared memory
+// and D, loaded beside it while the first key and value tiles load, each
+// thread 4 rows x 10 distances in registers as q k^T is tiled; a score
+// then costs one shared read of the table at its clamped j - i.  That is
+// 64 x 73 x 64 FMAs a block, under a fifth of q k^T's at T = 440, and
+// nothing of size T x T or B x T x 73 in device memory.  The table and D
+// take ~38 KB more shared memory than the gated mode's bias vector: two
+// blocks share an SM where the gated mode fits three.
 //
 // No --use_fast_math (see _build.py).
 #include <cuda_runtime.h>
@@ -224,8 +232,10 @@ __device__ __forceinline__ void rel_table(float* Tb, int ldt, const float* Qs, c
 __host__ __device__ __forceinline__ int rel_stride(int nrel) { return nrel | 1; }
 
 // One block of either mode.  GATED reads x, gw, gb, gc, emb (layer 0's
-// bucket embedding) and buckets; RELKEY reads emb as D [left + right + 1,
-// 64], and left and right.
+// bucket embedding), buckets, and `lengths` as each clip's frames of the
+// padded [B, T] rows; RELKEY reads emb as D [left + right + 1, 64], left
+// and right, and `lengths` as the packed rows' offsets [B + 1] (its batch
+// strides unused).
 template <int MODE>
 __device__ __forceinline__ void attention_block(
     const float* __restrict__ x, const float* __restrict__ q, const float* __restrict__ k,
@@ -244,23 +254,33 @@ __device__ __forceinline__ void attention_block(
   float* Tb = Bd;              // RELKEY: [BQ, ldt], q_i . D_d / 8
   float* Ds = Tb + BQ * ldt;   // RELKEY: D [nrel, LD]
   const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * BQ;
-  const int L = max(min(lengths[b], T), 1);
+  // the clip's rows: GATED T padded rows at b x the batch strides, of which
+  // L are its own; RELKEY its L packed rows from row0
+  long row0 = 0;
+  int L, rows;
+  if constexpr (MODE == GATED) {
+    L = max(min(lengths[b], T), 1);
+    rows = T;
+  } else {
+    row0 = lengths[b];
+    L = rows = lengths[b + 1] - lengths[b];
+  }
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 3, c = lane & 7;  // row group, key / column group
   const int D = H * HD;
-  float* o = out + (long)b * T * D + h * HD;
+  float* o = out + (MODE == GATED ? (long)b * T * D : row0 * D) + h * HD;
 
-  if (i0 >= L) {  // every row of the tile is padding
+  if (i0 >= L) {  // every row of the tile is padding (none, packed)
     for (int e = tid; e < BQ * (HD / 4); e += THREADS) {
       const int r = i0 + (e >> 4);
-      if (r < T)
+      if (r < rows)
         *reinterpret_cast<float4*>(o + (long)r * D + ((e & 15) << 2)) = make_float4(0, 0, 0, 0);
     }
     return;
   }
   const int n_kt = (L + BK - 1) / BK;
-  const float* kb = k + (long)b * ksb + h * HD;
-  const float* vb = v + (long)b * vsb + h * HD;
+  const float* kb = k + (MODE == GATED ? (long)b * ksb : row0 * ksr) + h * HD;
+  const float* vb = v + (MODE == GATED ? (long)b * vsb : row0 * vsr) + h * HD;
   int rr[4];  // this thread's rows in the tile
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii) rr[ii] = warp * 16 + g + 4 * ii;
@@ -322,7 +342,7 @@ __device__ __forceinline__ void attention_block(
   } else {
     // q's tile and D, then the first key and value tiles, which load while
     // the table is filled
-    load_tile(Qs, LD, q + (long)b * qsb + h * HD, qsr, i0, T);
+    load_tile(Qs, LD, q + row0 * qsr + h * HD, qsr, i0, rows);
     for (int e = tid; e < nrel * (HD / 4); e += THREADS)
       cp_async16(Ds + (e >> 4) * LD + ((e & 15) << 2), emb + (e >> 4) * HD + ((e & 15) << 2),
                  true);
@@ -445,7 +465,7 @@ __device__ __forceinline__ void attention_block(
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
     lt += __shfl_xor_sync(0xffffffffu, lt, 4);
     const int i = i0 + rr[ii];
-    if (i >= T) continue;
+    if (i >= rows) continue;
     float4 a = make_float4(0, 0, 0, 0), z = a;
     if (i < L) {
       a = make_float4(O[ii][0] / lt, O[ii][1] / lt, O[ii][2] / lt, O[ii][3] / lt);
@@ -472,11 +492,11 @@ __global__ void __launch_bounds__(THREADS, 3)
 __global__ void __launch_bounds__(THREADS, 2)
     relkey_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, const float* __restrict__ dist,
-                            const int* __restrict__ lengths, float* __restrict__ out,
+                            const int* __restrict__ offsets, float* __restrict__ out,
                             unsigned long long* __restrict__ pairs, int T, int H, int left,
-                            int right, int qsb, int qsr, int ksb, int ksr, int vsb, int vsr) {
-  attention_block<RELKEY>(nullptr, q, k, v, nullptr, nullptr, nullptr, dist, nullptr, lengths, out,
-                          pairs, T, H, 0, left, right, 0, 0, qsb, qsr, ksb, ksr, vsb, vsr);
+                            int right, int qsr, int ksr, int vsr) {
+  attention_block<RELKEY>(nullptr, q, k, v, nullptr, nullptr, nullptr, dist, nullptr, offsets, out,
+                          pairs, T, H, 0, left, right, 0, 0, 0, qsr, 0, ksr, 0, vsr);
 }
 
 // Shared memory a block needs for T frames.
@@ -517,16 +537,16 @@ extern "C" int gated_attention_launch(const void* x, const void* q, const void* 
   return (int)cudaGetLastError();
 }
 
-// q, k, v: [B, T, H x 64] float32 views as gated_attention_launch takes
-// them; dist [left + right + 1, 64] float32, contiguous and 16-byte
-// aligned, at most NREL_MAX rows; lengths [B] int32 frames; out [B, T,
-// H x 64]; pairs null, or a uint64 the kernel adds the pairs it multiplied
-// to.
+// q, k, v: [R, H x 64] float32 views of packed rows (last stride 1, the
+// row strides in floats, multiples of 4, 16-byte aligned); dist
+// [left + right + 1, 64] float32, contiguous and 16-byte aligned, at most
+// NREL_MAX rows; offsets [B + 1] int32, clip b's rows offsets[b] ..
+// offsets[b + 1] - 1; T the longest clip's rows; out [R, H x 64]; pairs
+// null, or a uint64 the kernel adds the pairs it multiplied to.
 extern "C" int relkey_attention_launch(const void* q, const void* k, const void* v,
-                                       const void* dist, const void* lengths, void* out,
+                                       const void* dist, const void* offsets, void* out,
                                        void* pairs, int B, int T, int H, int left, int right,
-                                       int qsb, int qsr, int ksb, int ksr, int vsb, int vsr,
-                                       void* stream) {
+                                       int qsr, int ksr, int vsr, void* stream) {
   if (B < 1 || T < 1 || H < 1 || left < 0 || right < 0 || left + right + 1 > NREL_MAX)
     return (int)cudaErrorInvalidValue;
   const int bytes = relkey_smem_bytes(left + right + 1);
@@ -535,7 +555,7 @@ extern "C" int relkey_attention_launch(const void* q, const void* k, const void*
   if (err != cudaSuccess) return (int)err;
   relkey_attention_kernel<<<dim3((T + BQ - 1) / BQ, H, B), THREADS, bytes,
                             (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dist, (const int*)lengths,
-      (float*)out, (unsigned long long*)pairs, T, H, left, right, qsb, qsr, ksb, ksr, vsb, vsr);
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dist, (const int*)offsets,
+      (float*)out, (unsigned long long*)pairs, T, H, left, right, qsr, ksr, vsr);
   return (int)cudaGetLastError();
 }

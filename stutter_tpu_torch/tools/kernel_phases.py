@@ -3,6 +3,7 @@
     python -m stutter_tpu_torch.tools.kernel_phases
     python -m stutter_tpu_torch.tools.kernel_phases --stats
     python -m stutter_tpu_torch.tools.kernel_phases --attention
+    python -m stutter_tpu_torch.tools.kernel_phases --conv
     python -m stutter_tpu_torch.tools.kernel_phases --stats-plans
     python -m stutter_tpu_torch.tools.kernel_phases --stats-timeline
 
@@ -26,14 +27,21 @@ stops the run, and its pattern here is brought up to date.
 
 With --attention it times each mode of csrc/gated_attention.cu
 (ATTENTION_MODES: WavLM's gated attention core, models/wavlm
-.gated_attention, then W2V-BERT 2.0's relative-key one, models/w2v_bert
-.relkey_attention) at ATTENTION_SHAPES -- the corpus cells' fitted
-batches of 64 at T_pad 45, 136 and 440, 9 rows at 440, one request at
-511, ragged lengths and a clip of no frames -- beside its bound (the benchmark's counted FP32 operations
+.gated_attention, on padded [B, T] rows, then W2V-BERT 2.0's relative-key
+one, models/w2v_bert.relkey_attention, on the same clips' rows packed) at
+ATTENTION_SHAPES -- the corpus cells' fitted batches of 64 at T_pad 45,
+136 and 440, 9 rows at 440, one request at 511, ragged lengths and a clip
+of no frames -- beside its bound (the benchmark's counted FP32 operations
 over 67 TFLOP/s), the plain version and F.scaled_dot_product_attention on
 the bias and mask the plain version builds (a yardstick the port never
 calls), with the kernels each call launched and the device memory it
-allocated: one JSON line a mode and shape (`"mode"`).
+allocated: one JSON line a mode and shape (`"mode"`).  With --conv it
+times csrc/glu_depthwise.cu (models/w2v_bert.glu_depthwise, the conv
+module's GLU and causal depthwise conv on packed rows) at the same clips'
+frames beside its bound (12 bytes a value over 3.35 TB/s), its plain
+version and the padded path's GLU and F.conv1d between two transposes
+(conv1d_call, a yardstick the port no longer calls): one JSON line a
+shape.
 
 With --stats it instead times each kernel of the stats-mode wrapper at
 B=256 x 3 s, at the MLP stream's [64, 48128] and at one 3 s request (only
@@ -401,6 +409,7 @@ def stats_timeline(dev, card: str) -> None:
 # of 64, its last batch's 9 rows, one 10.24 s request
 ATTENTION_SHAPES = ((64, 45), (64, 136), (64, 440), (9, 440), (1, 511))
 FP32_RATE = 67e12  # one H100 SXM's FP32 FLOP/s outside the tensor cores
+HBM_RATE = 3.35e12  # its device memory's bytes/s
 
 
 # csrc/gated_attention.cu's modes -> (the model module, its attention core)
@@ -418,15 +427,40 @@ def attention_model(mode: str):
     return importlib.import_module(f"stutter_tpu_torch.models.{module}"), name
 
 
+def clip_frames(B: int, T: int, seed: int):
+    """B clips' frames for a batch padded to T: the first clip T, the last
+    (B > 1) none, the rest drawn in [0.6 T, T] -> numpy int64 [B]."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    frames = rng.randint(max(1, int(0.6 * T)), T + 1, B)
+    frames[0] = T
+    if B > 1:
+        frames[-1] = 0
+    return frames
+
+
+def frames_of(last):
+    """Each clip's frames, int64 on the host, from an attention core's last
+    argument: a frames tensor, or the packed rows' Clips."""
+    return last.frames if hasattr(last, "offsets") else last.cpu().long()
+
+
+def on_cpu(t):
+    """A tensor, or the packed rows' Clips, on the CPU."""
+    return t._replace(offsets=t.offsets.cpu()) if hasattr(t, "offsets") else t.cpu()
+
+
 def attention_inputs(B: int, T: int, seed: int, device, cfg=None, mode: str = "gated"):
     """Layer 0's attention core of `mode` at `cfg`'s widths (WavLM-Large's
     for "gated", W2V-BERT 2.0's for "relkey", by default): its weights
     (the bucket embedding and the gate's; the distance_embedding), the
-    activations the core takes (x, q, k, v; q, k, v), q, k, v as [B, T, D]
-    slices of one [B, T, 3 D] tensor, and each clip's frames: the first
-    clip T, the last (B > 1) none, the rest drawn in [0.6 T, T] -> (p, cfg,
-    *activations, frames int32)."""
-    import numpy as np
+    activations the core takes (x, q, k, v; q, k, v), q, k, v as slices of
+    one tensor, and where each clip's rows lie (clip_frames' clips).
+    "gated": q, k, v [B, T, D] slices of one [B, T, 3 D] tensor, and the
+    frames -> (p, cfg, x, q, k, v, frames int32).  "relkey": the same
+    draws' rows of each clip's frames packed, q, k, v [R, D] slices of one
+    [R, 3 D] tensor, and their Clips -> (p, cfg, q, k, v, clips)."""
     import torch
 
     from stutter_tpu_torch.config import W2VBertConfig, WavLMConfig
@@ -448,12 +482,13 @@ def attention_inputs(B: int, T: int, seed: int, device, cfg=None, mode: str = "g
              torch.randn(nrel, D // H, generator=g)}
         acts = ()
     p = {k: t.to(device) for k, t in p.items()}
-    q, k, v = torch.randn(B, T, 3 * D, generator=g).to(device).split(D, dim=-1)
-    rng = np.random.RandomState(seed)
-    frames = rng.randint(max(1, int(0.6 * T)), T + 1, B)
-    frames[0] = T
-    if B > 1:
-        frames[-1] = 0
+    qkv = torch.randn(B, T, 3 * D, generator=g)
+    frames = clip_frames(B, T, seed)
+    if mode == "relkey":
+        f = torch.from_numpy(frames)
+        qkv = qkv.reshape(B * T, 3 * D)[M.pack_index(f, T)]
+        return (p, cfg, *qkv.to(device).split(D, dim=-1), M.pack_clips(f, device))
+    q, k, v = qkv.to(device).split(D, dim=-1)
     return (p, cfg, *acts, q, k, v, torch.tensor(frames, dtype=torch.int32, device=device))
 
 
@@ -477,22 +512,22 @@ def attention_ops(frames, cfg) -> float:
 def attention_check(B: int, T: int, dev, mode: str = "gated") -> dict:
     """`mode`'s kernel once at (B, T) on attention_inputs, against its plain
     version on the CPU: the worst gap |got - ref| / (1 + |ref|) over each
-    clip's rows i < max(T_b, 1), whether every row past them is zero, the
+    clip's rows (padded: i < max(T_b, 1); packed: its T_b rows), whether
+    every padded row past them is zero (packed rows have none), the
     launches the call counted and the device memory it allocated beyond
     its output (the plain version's [B, heads, T, T] float32 tensor beside
     it); then the pairs the kernel reports it multiplied on a second call,
-    beside attn_pairs_run x heads, and whether that call's output is the
-    first's bit for bit -> a dict, with the inputs under "inputs"."""
+    beside the model's attn_pairs_run x heads, and whether that call's
+    output is the first's bit for bit -> a dict, with the inputs under
+    "inputs"."""
     import torch
-
-    from stutter_tpu_torch.models.wavlm import attn_pairs_run
 
     M, name = attention_model(mode)
     core, cuda, plain = (getattr(M, name), getattr(M, f"_{name}_cuda"),
                          getattr(M, f"{name}_plain"))
     inputs = attention_inputs(B, T, B * 1000 + T + (7 if mode == "relkey" else 0), dev, mode=mode)
     p, cfg, *acts = inputs
-    frames = acts[-1]
+    frames = frames_of(acts[-1])
     core(p, 0, *acts, cfg)  # builds and caches what a first call builds
     torch.cuda.synchronize()
     before, base = M._LAUNCHES.launches, torch.cuda.memory_allocated(dev)
@@ -503,17 +538,22 @@ def attention_check(B: int, T: int, dev, mode: str = "gated") -> dict:
     extra = torch.cuda.max_memory_allocated(dev) - base - got.numel() * 4
     pairs = torch.zeros(1, dtype=torch.int64, device=dev)
     counted = cuda(p, 0, *acts, cfg, pairs=pairs)
-    ref = plain({n: t.cpu() for n, t in p.items()}, 0, *(t.cpu() for t in acts), cfg)
-    got, gap, zero = got.cpu(), 0.0, True
+    ref = plain({n: t.cpu() for n, t in p.items()}, 0, *(on_cpu(t) for t in acts), cfg)
+    got, gap, zero, s = got.cpu(), 0.0, True, 0
     for b, n in enumerate(frames.tolist()):
-        n = max(n, 1)
-        gap = max(gap, float(((got[b, :n] - ref[b, :n]).abs() / (1 + ref[b, :n].abs())).max()))
-        zero = zero and not bool(got[b, n:].any())
+        if got.dim() == 2:  # packed: the clip's own rows, none past them
+            g, r, s = got[s : s + n], ref[s : s + n], s + n
+        else:
+            n = max(n, 1)
+            g, r = got[b, :n], ref[b, :n]
+            zero = zero and not bool(got[b, n:].any())
+        if n:
+            gap = max(gap, float(((g - r).abs() / (1 + r.abs())).max()))
     return {"mode": mode, "shape": [B, T], "frames": [int(frames.min()), int(frames.max())],
             "gap": gap, "padded_rows_zero": zero, "launches": launches,
             "pairs": int(pairs.item()), "counted_call_equal": bool(torch.equal(counted.cpu(), got)),
-            "pairs_run": cfg.num_attention_heads * attn_pairs_run(frames.cpu()),
-            "pairs_valid": int((frames.long() ** 2).sum()), "extra_bytes": int(extra),
+            "pairs_run": cfg.num_attention_heads * M.attn_pairs_run(frames),
+            "pairs_valid": int((frames ** 2).sum()), "extra_bytes": int(extra),
             "btt_bytes": B * cfg.num_attention_heads * T * T * 4, "inputs": inputs}
 
 
@@ -529,8 +569,14 @@ def sdpa_call(p, cfg, *acts):
     from stutter_tpu_torch.config import W2VBertConfig
     from stutter_tpu_torch.models import w2v_bert, wavlm
 
-    *_, q, k, v, frames = acts
+    *_, q, k, v, last = acts
+    frames = frames_of(last)
+    if q.dim() == 2:  # packed rows, laid out [B, T] for the library
+        B, T, D = len(frames), last.longest, q.shape[-1]
+        idx = w2v_bert.pack_index(frames, T).to(q.device)
+        q, k, v = (t.new_zeros(B * T, D).index_copy_(0, idx, t).view(B, T, D) for t in (q, k, v))
     B, T, _ = q.shape
+    frames = frames.to(q.device)
     H = cfg.num_attention_heads
     q4, k4, v4 = (t.reshape(B, T, H, -1).transpose(1, 2) for t in (q, k, v))
     if isinstance(cfg, W2VBertConfig):
@@ -541,7 +587,7 @@ def sdpa_call(p, cfg, *acts):
     else:
         bias = (wavlm.bias_gate(p, 0, acts[0], H)[..., None]
                 * wavlm.position_bias(p, T, cfg, q.device))
-    valid = wavlm._valid(frames.long(), T) | (torch.arange(T, device=q.device) == 0)[None, :]
+    valid = wavlm._valid(frames, T) | (torch.arange(T, device=q.device) == 0)[None, :]
     mask = bias + wavlm.key_mask(valid)
     return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
 
@@ -559,11 +605,109 @@ def attention_times(dev, card: str) -> None:
             kernel = kernel_times(lambda: core(p, 0, *acts, cfg))
             plain_ms = kernel_times(lambda: plain(p, 0, *acts, cfg))
             sdpa = kernel_times(sdpa_call(*inputs))
-            ops = attention_ops(acts[-1].tolist(), cfg)
+            ops = attention_ops(frames_of(acts[-1]).tolist(), cfg)
             print(json.dumps({
                 **res, "kernel_ms": sum(kernel.values()), "kernels": sorted(kernel),
                 "plain_ms": sum(plain_ms.values()), "sdpa_ms": sum(sdpa.values()),
                 "bound_ms": ops / FP32_RATE * 1e3, "flops": ops, "card": card}), flush=True)
+
+
+def conv_inputs(frames, seed: int, device, cfg=None):
+    """Layer 0's conv module core at `cfg`'s widths (W2V-BERT 2.0's by
+    default) over clips of `frames` rows, packed: x [R, 2 C] (what the
+    first pointwise conv gives), the depthwise conv's weight [C, 1, K] at
+    its initial scale and the Clips -> (x, w, clips)."""
+    import torch
+
+    from stutter_tpu_torch.config import W2VBertConfig
+    from stutter_tpu_torch.models import w2v_bert
+
+    cfg = cfg or W2VBertConfig()
+    C, K = cfg.hidden_size, cfg.conv_depthwise_kernel_size
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(int(sum(frames)), 2 * C, generator=g)
+    w = torch.randn(C, 1, K, generator=g) * math.sqrt(2.0 / K)
+    return x.to(device), w.to(device), w2v_bert.pack_clips(frames, device)
+
+
+def conv_bound(rows: int, channels: int, taps: int) -> dict:
+    """The least time of the GLU and the causal depthwise conv over `rows`
+    x `channels` values: each value's two inputs read and its output
+    written (12 bytes) over the HBM rate, or its operations (the GLU's 4,
+    2 a tap) over the FP32 peak, whichever is larger."""
+    n_bytes, ops = 12.0 * rows * channels, float((4 + 2 * taps) * rows * channels)
+    mem_ms, op_ms = n_bytes / HBM_RATE * 1e3, ops / FP32_RATE * 1e3
+    return {"bound_ms": max(mem_ms, op_ms), "bound_by": "bytes" if mem_ms >= op_ms else "operations",
+            "bytes": n_bytes, "flops": ops}
+
+
+def conv_check(frames, dev, seed: int = 0) -> dict:
+    """glu_depthwise's kernel once on conv_inputs of clips of `frames`
+    rows, against its plain version on the card: the worst gap |got - ref|
+    / (1 + |ref|), the launches the call counted and the device memory it
+    allocated beyond its output; then a second call into a NaN-filled
+    buffer of 64 rows more than R: whether it wrote past row R, and whether
+    its rows are the first call's bit for bit -> a dict, with the inputs
+    under "inputs"."""
+    import torch
+
+    from stutter_tpu_torch.models import w2v_bert as M
+
+    x, w, clips = inputs = conv_inputs(frames, seed, dev)
+    M.glu_depthwise(x, w, clips)  # builds the kernel
+    torch.cuda.synchronize()
+    before, base = M.glu_depthwise.launches, torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = M.glu_depthwise(x, w, clips)
+    torch.cuda.synchronize()
+    launches = M.glu_depthwise.launches - before
+    extra = torch.cuda.max_memory_allocated(dev) - base - got.numel() * 4
+    R, C = got.shape
+    buf = torch.full((R + 64, C), float("nan"), device=dev)
+    again = M._glu_depthwise_cuda(x, w, clips, out=buf)
+    ref = M.glu_depthwise_plain(x, w, clips)
+    gap = float(((got - ref).abs() / (1 + ref.abs())).max()) if R else 0.0
+    return {"frames": [int(min(frames)), int(max(frames))], "clips": len(frames), "rows": R,
+            "gap": gap, "launches": launches, "extra_bytes": int(extra),
+            "written_past_rows": not bool(buf[R:].isnan().all()),
+            "again_equal": bool(torch.equal(again, got)), "inputs": inputs}
+
+
+def conv1d_call(x, w, clips):
+    """The GLU and the causal depthwise conv as the padded layout ran them:
+    each clip's rows laid out [B, T] (T its longest), the GLU, then
+    F.conv1d channels first with a left pad of K - 1 between two transposes
+    (cuDNN's or ATen's depthwise conv, a yardstick the port no longer
+    calls) -> a function of no argument."""
+    import torch.nn.functional as F
+
+    from stutter_tpu_torch.models import w2v_bert
+
+    B, T, K = len(clips.frames), clips.longest, w.shape[-1]
+    idx = w2v_bert.pack_index(clips.frames, T).to(x.device)
+    xp = x.new_zeros(B * T, x.shape[1]).index_copy_(0, idx, x).view(B, T, -1)
+    return lambda: F.conv1d(F.pad(F.glu(xp, dim=-1).transpose(1, 2), (K - 1, 0)), w,
+                            groups=w.shape[0]).transpose(1, 2).contiguous()
+
+
+def conv_times(dev, card: str) -> None:
+    """At each of ATTENTION_SHAPES' clips (clip_frames), conv_check and the
+    device ms a call (torch.profiler) of the kernel, the plain version and
+    conv1d_call, beside conv_bound."""
+    from stutter_tpu_torch.models import w2v_bert as M
+
+    for B, T in ATTENTION_SHAPES:
+        frames = clip_frames(B, T, B * 1000 + T)
+        res = conv_check(frames, dev)
+        x, w, clips = res.pop("inputs")
+        kernel = kernel_times(lambda: M.glu_depthwise(x, w, clips))
+        plain = kernel_times(lambda: M.glu_depthwise_plain(x, w, clips))
+        lib = kernel_times(conv1d_call(x, w, clips))
+        print(json.dumps({**res, "shape": [B, T], "kernel_ms": sum(kernel.values()),
+                          "kernels": sorted(kernel), "plain_ms": sum(plain.values()),
+                          "conv1d_ms": sum(lib.values()), "conv1d_kernels": sorted(lib),
+                          **conv_bound(res["rows"], w.shape[0], w.shape[-1]), "card": card}),
+              flush=True)
 
 
 def main(argv=None) -> int:
@@ -580,6 +724,9 @@ def main(argv=None) -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     if "--attention" in argv:
         attention_times(dev, card)
+        return 0
+    if "--conv" in argv:
+        conv_times(dev, card)
         return 0
     if "--stats" in argv:
         stats_times(dev, card)

@@ -625,14 +625,15 @@ def test_gated_attention_kernel_rejects_what_it_does_not_take(cuda):
 
 @pytest.mark.parametrize("B,T", [(64, 45), (64, 136), (64, 440), (9, 440), (1, 511)])
 def test_relkey_attention_kernel_matches_plain(cuda, B, T):
-    """The kernel's relative-key mode (W2V-BERT 2.0's attention core) at
-    the corpus cell's fitted batches, their last 9 rows and one request, q,
-    k, v read by strides from one [B, T, 3072] tensor, ragged clips and one
-    of no frames: every row i < max(T_b, 1) within 1e-5 of
-    relkey_attention_plain on the CPU, every row past it zero, one launch a
-    call, no device memory beyond the output (no [B, 16, T, T] tensor),
-    and the pairs the kernel reports it multiplied equal to attn_pairs_run
-    x heads, the counted call's output the same bit for bit."""
+    """The kernel's relative-key mode (W2V-BERT 2.0's attention core) on
+    packed rows at the corpus cell's fitted batches' clips, their last 9
+    and one request, q, k, v read by strides from one [R, 3072] tensor,
+    each clip's rows from its offset, ragged clips and one of no frames
+    (no row): every clip's rows within 1e-5 of relkey_attention_plain on
+    the CPU, one launch a call, no device memory beyond the output (no [B,
+    16, T, T] tensor), and the pairs the kernel reports it multiplied equal
+    to attn_pairs_run x heads, the counted call's output the same bit for
+    bit."""
     from stutter_tpu_torch.tools.kernel_phases import attention_check
 
     res = attention_check(B, T, cuda, "relkey")
@@ -646,28 +647,75 @@ def test_relkey_attention_kernel_matches_plain(cuda, B, T):
 def test_relkey_attention_kernel_rejects_what_it_does_not_take(cuda):
     """A CUDA tensor of another dtype or layout raises instead of running:
     float64 q, a q whose last stride is not 1, a q off 16-byte alignment,
-    int64 frames, more than 80 distances, and a head width of 16."""
+    padded [B, T, D] rows, int64 offsets, offsets of other rows than q's,
+    more than 80 distances, and a head width of 16."""
     import dataclasses
 
     from stutter_tpu_torch.config import W2VBertConfig
     from stutter_tpu_torch.models import w2v_bert as W
     from stutter_tpu_torch.tools.kernel_phases import attention_inputs
 
-    p, cfg, q, k, v, frames = attention_inputs(2, 45, 7, cuda, mode="relkey")
-    wide = torch.randn(2, 45, 1025, device=cuda)
+    p, cfg, q, k, v, clips = attention_inputs(2, 45, 7, cuda, mode="relkey")
+    R = q.shape[0]
+    wide = torch.randn(R, 1025, device=cuda)
     bad = {"float64": dict(q=q.double()),
-           "last stride": dict(q=torch.randn(2, 1024, 45, device=cuda).transpose(1, 2)),
-           "alignment": dict(q=wide[..., 1:]),
-           "int64 frames": dict(frames=frames.long())}
+           "last stride": dict(q=torch.randn(1024, R, device=cuda).T),
+           "alignment": dict(q=wide[:, 1:]),
+           "padded": dict(q=q[None], k=k[None], v=v[None]),
+           "int64 offsets": dict(clips=clips._replace(offsets=clips.offsets.long())),
+           "rows": dict(clips=W.pack_clips(clips.frames + 1, cuda))}
     for what, swap in bad.items():
-        args = {**dict(q=q, k=k, v=v, frames=frames), **swap}
+        args = {**dict(q=q, k=k, v=v, clips=clips), **swap}
         with pytest.raises(ValueError):
-            W.relkey_attention(p, 0, args["q"], args["k"], args["v"], args["frames"], cfg)
+            W.relkey_attention(p, 0, args["q"], args["k"], args["v"], args["clips"], cfg)
     far = dataclasses.replace(cfg, left_max_position_embeddings=72)
     p81, *_ = attention_inputs(2, 45, 7, cuda, far, "relkey")
     with pytest.raises(ValueError, match="at most 80"):
-        W.relkey_attention(p81, 0, q, k, v, frames, far)
-    p16, narrow, *acts, f16 = attention_inputs(
+        W.relkey_attention(p81, 0, q, k, v, clips, far)
+    p16, narrow, *acts, c16 = attention_inputs(
         2, 45, 7, cuda, W2VBertConfig(hidden_size=256, num_attention_heads=16), "relkey")
     with pytest.raises(ValueError, match="heads x 64"):
-        W.relkey_attention(p16, 0, *acts, f16, narrow)
+        W.relkey_attention(p16, 0, *acts, c16, narrow)
+
+
+@pytest.mark.parametrize("frames", [[1, 30, 31, 45, 440], [440, 0, 1, 0], [31], [2] * 64,
+                                    "64x136"])
+def test_glu_depthwise_kernel_matches_plain(cuda, frames):
+    """The conv module's kernel (GLU and causal depthwise conv on packed
+    rows, W2V-BERT 2.0's 1024 channels and 31 taps) on ragged clips of 1,
+    30, 31, 45 and 440 frames, clips of no frame, one clip, many short ones
+    and the corpus cell's 64 x 136 batch's clips: within 1e-5 of
+    glu_depthwise_plain (|got - ref| / (1 + |ref|)), one launch a call,
+    no device memory beyond the output, nothing written past row R of a
+    larger buffer, the same rows bit for bit."""
+    from stutter_tpu_torch.tools.kernel_phases import clip_frames, conv_check
+
+    if frames == "64x136":
+        frames = clip_frames(64, 136, 64136).tolist()
+    res = conv_check(frames, cuda)
+    assert res["gap"] <= 1e-5, res["gap"]
+    assert res["launches"] == 1
+    assert res["extra_bytes"] <= 1 << 20
+    assert not res["written_past_rows"] and res["again_equal"]
+
+
+def test_glu_depthwise_kernel_rejects_what_it_does_not_take(cuda):
+    """A CUDA tensor the kernel does not take raises instead of running:
+    float64 x, a non-contiguous x, padded [B, T, 2 C] rows, 15 taps, 48
+    channels (not a multiple of 32), int64 offsets, offsets of other rows
+    than x's."""
+    from stutter_tpu_torch.models import w2v_bert as W
+    from stutter_tpu_torch.tools.kernel_phases import conv_inputs
+
+    x, w, clips = conv_inputs([30, 45], 0, cuda)
+    bad = {"float64": dict(x=x.double()),
+           "strided": dict(x=torch.randn(2048, x.shape[0], device=cuda).T),
+           "padded": dict(x=x[None]),
+           "15 taps": dict(w=w[..., :15].contiguous()),
+           "48 channels": dict(x=x[:, :96].contiguous(), w=w[:48].contiguous()),
+           "int64 offsets": dict(clips=clips._replace(offsets=clips.offsets.long())),
+           "rows": dict(clips=W.pack_clips([31, 45], cuda))}
+    for what, swap in bad.items():
+        args = {**dict(x=x, w=w, clips=clips), **swap}
+        with pytest.raises(ValueError):
+            W.glu_depthwise(args["x"], args["w"], args["clips"])

@@ -153,6 +153,91 @@ def test_a_batch_over_the_sample_budget_is_encoded_in_row_chunks(small, monkeypa
     np.testing.assert_allclose(chunked, whole, rtol=0, atol=1e-5)
 
 
+# ------------------------------------------------------------ packed rows
+
+def _encode(p, clips, N=None):
+    """W.encode of `clips` zero-padded to N samples (their longest by
+    default) -> [B, 64] numpy."""
+    N = N or max(len(y) for y in clips)
+    audio = torch.zeros(len(clips), N)
+    for i, y in enumerate(clips):
+        audio[i, : len(y)] = torch.from_numpy(y)
+    with torch.no_grad():
+        return W.encode(p, audio, torch.tensor([len(y) for y in clips]), SMALL).numpy()
+
+
+def test_packed_encode_matches_the_reference_on_a_ragged_batch():
+    """encode on one ragged batch (frames 1 to 93, packed to their sum):
+    each clip's embedding within TOL of the reference's on the clip alone,
+    unpadded."""
+    p = _params(SMALL)
+    clips = _clips((30000, 800, 9000, 16399, 24576, 5000))
+    got = _encode(p, clips)
+    c = dataclasses.asdict(SMALL)
+    assert max(_gap(x, R.embed(p, y, c).numpy()) for x, y in zip(got, clips)) < TOL
+
+
+def test_a_clip_alone_equals_itself_inside_a_packed_batch():
+    """Each clip's embedding from encode of it alone and from encode of a
+    packed batch of five (clips before and after it, the batch padded past
+    its longest) agree to 1e-5."""
+    p = _params(SMALL)
+    clips = _clips((12000, 40000, 3000, 26000, 9000))
+    batch = _encode(p, clips, N=50000)
+    for x, y in zip(batch, clips):
+        np.testing.assert_allclose(x, _encode(p, [y])[0], rtol=0, atol=1e-5)
+
+
+def test_a_clip_of_no_frame_gives_a_zero_embedding():
+    """A clip under one frame pair has no row: its embedding is zero, beside
+    and between clips that have rows (theirs as alone), and a batch whose
+    clips have no row at all gives zeros."""
+    p = _params(SMALL)
+    clips = _clips((300, 20000, 559, 9000, 0))
+    got = _encode(p, clips)
+    assert not got[[0, 2, 4]].any()
+    for i in (1, 3):
+        np.testing.assert_allclose(got[i], _encode(p, [clips[i]])[0], rtol=0, atol=1e-5)
+    none = _encode(p, clips[:1] + clips[2:3], N=4000)
+    assert none.shape == (2, 64) and not none.any()
+
+
+@pytest.mark.parametrize("frames", [[1, 30, 31, 45, 440], [440, 0, 1], [2, 2, 2], [29, 31, 30]])
+def test_plain_packed_depthwise_conv_equals_conv1d_on_each_clip_alone(frames):
+    """depthwise_conv on packed rows, and glu_depthwise_plain (GLU first),
+    equal F.conv1d with a left pad of K - 1 on each clip padded alone:
+    clips of 1, 30 and 31 frames (under, at and past the 30-row halo),
+    one of none, one of 440."""
+    g = torch.Generator().manual_seed(sum(frames))
+    C, K = 64, W.CONV_TAPS
+    w = torch.randn(C, 1, K, generator=g)
+    x = torch.randn(sum(frames), 2 * C, generator=g)
+    clips = W.pack_clips(frames, "cpu")
+    glu = torch.nn.functional.glu(x, dim=-1)
+    got, fused = W.depthwise_conv(glu, w, clips), W.glu_depthwise_plain(x, w, clips)
+    s = 0
+    for n in (n for n in frames if n):
+        seg = torch.nn.functional.pad(glu[s : s + n].T[None], (K - 1, 0))
+        want = torch.nn.functional.conv1d(seg, w, groups=C)[0].T
+        for y in (got, fused):
+            assert float((y[s : s + n] - want).abs().max()) < 1e-5
+        s += n
+    assert got.shape == fused.shape == (s, C)
+
+
+def test_pack_index_and_offsets_lay_out_each_clips_rows():
+    """pack_index puts clip b's rows t < frames[b] at b T + t, clip after
+    clip; pack_clips' offsets are the running sums; row_starts gives each
+    row its clip's first row."""
+    f = torch.tensor([3, 0, 2, 1])
+    assert W.pack_index(f, 4).tolist() == [0, 1, 2, 8, 9, 12]
+    clips = W.pack_clips(f, "cpu")
+    assert clips.offsets.dtype == torch.int32 and clips.offsets.tolist() == [0, 3, 3, 5, 6]
+    assert clips.longest == 3 and W.pack_clips([], "cpu").longest == 0
+    assert W.row_starts(clips, "cpu").tolist() == [0, 0, 0, 3, 3, 5]
+    assert W.attn_pairs_run([0, 5]) == W.attn_pairs_run([5]) == 16 * 8
+
+
 # ------------------------------------------------------------ planted faults
 
 _ORIG = {"distance_index": W.distance_index, "depthwise_conv": W.depthwise_conv,
@@ -160,10 +245,23 @@ _ORIG = {"distance_index": W.distance_index, "depthwise_conv": W.depthwise_conv,
          "normalise": FB.normalise, "stack_pairs": FB.stack_pairs}
 
 
-def _centred(x, w):
+def _centred(x, w, clips):
+    """The depthwise conv centred on each row, over each clip's rows alone."""
     K = w.shape[-1]
-    return torch.nn.functional.conv1d(x.transpose(1, 2), w, padding=K // 2,
-                                      groups=w.shape[0]).transpose(1, 2)
+    out, s = [], 0
+    for n in (n for n in clips.frames.tolist() if n):
+        seg = x[s : s + n].T[None]
+        out.append(torch.nn.functional.conv1d(seg, w, padding=K // 2, groups=w.shape[0])[0].T)
+        s += n
+    return torch.cat(out) if out else x
+
+
+def _across_clips(x, w, clips):
+    """The causal depthwise conv over the packed rows as one sequence: a
+    clip's first rows read up to K - 1 rows of the clip before it."""
+    K = w.shape[-1]
+    return torch.nn.functional.conv1d(torch.nn.functional.pad(x.T[None], (K - 1, 0)), w,
+                                      groups=w.shape[0])[0].T
 
 
 def _ffn1_whole(p, name, x):
@@ -177,16 +275,13 @@ def _pairs_swapped(feats):
     return feats[:, : 2 * T].reshape(B, T, 2, m).flip(2).reshape(B, T, 2 * m)
 
 
-def _conv_unmasked(p, i, h, valid, cfg):
-    return _ORIG["conv_module"](p, i, h, torch.ones_like(valid), cfg)
-
-
 FAULTS = {
     "relkey_bias_dropped": (W, "rel_key_scores", lambda q, d, idx: torch.zeros(
         *q.shape[:2], *idx.shape)),
     "clamp_swapped": (W, "distance_index", lambda T, left, right, device=None:
                       _ORIG["distance_index"](T, right, left, device)),
     "depthwise_centred": (W, "depthwise_conv", _centred),
+    "depthwise_reads_the_clip_before": (W, "depthwise_conv", _across_clips),
     "ffn_half_dropped": (W, "feed_forward", _ffn1_whole),
     "fbank_normalised_over_padding": (FB, "normalise", lambda feats, n: _ORIG["normalise"](
         feats, torch.full_like(n, feats.shape[1]))),
@@ -198,7 +293,8 @@ FAULTS = {
 def test_each_planted_fault_fails_against_the_reference(small, fault, monkeypatch):
     """The comparison sees each fault: the relative-key term dropped, the
     distance clamp swapped to [-8, 64], the depthwise conv centred instead
-    of causal, FFN1's 1/2 dropped, the fbank normalised over the padded
+    of causal, the causal conv reading up to 30 rows of the clip packed
+    before, FFN1's 1/2 dropped, the fbank normalised over the padded
     frames, each frame pair stacked in the wrong order."""
     module, name, fn = FAULTS[fault]
     monkeypatch.setattr(module, name, fn)
@@ -207,13 +303,13 @@ def test_each_planted_fault_fails_against_the_reference(small, fault, monkeypatc
 
 def test_padded_frames_unzeroed_before_the_conv_module_fail_against_transformers(small,
                                                                                   monkeypatch):
-    """The conv module's zeroing of the padded frames (transformers'
-    masked_fill with conv_attention_mask), planted away: the causal
-    depthwise conv never carries a later frame into an earlier one, so the
-    clips' own frames, and the embeddings, are the same with or without it;
-    the module's padded frames are not, and transformers'
-    Wav2Vec2BertConvolutionModule over a padded batch holds conv_module to
-    every frame."""
+    """The conv module on packed rows against transformers'
+    Wav2Vec2BertConvolutionModule over a padded batch with its attention
+    mask (which zeroes the padded frames before the depthwise conv): each
+    clip's rows are the module's at that clip's frames.  Packed, the rows
+    before a clip's first are the clip before it, where the padded batch
+    had zeros; a depthwise conv that reads them, planted, fails against the
+    module in every clip but the first."""
     monkeypatch.setenv("USE_TF", "0")
     monkeypatch.setenv("USE_FLAX", "0")
     pytest.importorskip("transformers")
@@ -229,16 +325,20 @@ def test_padded_frames_unzeroed_before_the_conv_module_fail_against_transformers
     mod.load_state_dict({k[len(pre):]: v for k, v in p.items() if k.startswith(pre)})
     g = torch.Generator().manual_seed(5)
     h = torch.randn(3, 50, 64, generator=g)
-    valid = W._valid(torch.tensor([50, 17, 40]), 50)
+    frames = torch.tensor([50, 17, 40])
+    valid = W._valid(frames, 50)
+    clips = W.pack_clips(frames, "cpu")
+    packed = h[valid]
     with torch.no_grad():
-        want = mod(h, attention_mask=valid.long())
-        sound = W.conv_module(p, 1, h, valid, SMALL)
-        monkeypatch.setattr(W, "conv_module", _conv_unmasked)
-        planted = W.conv_module(p, 1, h, valid, SMALL)
+        want = mod(h, attention_mask=valid.long())[valid]
+        sound = W.conv_module(p, 1, packed, clips, SMALL)
+        monkeypatch.setattr(W, "depthwise_conv", _across_clips)
+        planted = W.conv_module(p, 1, packed, clips, SMALL)
     assert float((sound - want).abs().max()) < 1e-5
-    assert float((planted - want).abs().max()) > FAULT
-    assert torch.equal(planted[valid], sound[valid])
-    assert _worst_gap(fc, p, _clips()) < TOL
+    assert float((planted[:50] - want[:50]).abs().max()) < 1e-5  # the first clip has none before
+    for s, n in ((50, 17), (67, 40)):
+        assert float((planted[s : s + n] - want[s : s + n]).abs().max()) > FAULT
+    assert _worst_gap(fc, p, _clips()) > FAULT
 
 
 # ------------------------------------------------------------ transformers
@@ -393,10 +493,11 @@ def test_traced_extraction_opens_the_spans_and_counts_the_shapes(small, tmp_path
     """Under a profiler, extract_features_numpy's encoder opens one
     `stp.w2v_bert.encode` a batch holding a `fbank` and, a layer, one
     `attention` and one `conv_module`; the counters add up to the batches'
-    shapes (fitted_groups' batches at a stride of 320 samples): sum T_i and
-    B T_pad frames, sum T_i^2 and B T_pad^2 attention pairs, and the pairs
-    the kernel multiplies, each clip's rows in warps of 16 by its keys in
-    groups of 8."""
+    shapes (fitted_groups' batches at a stride of 320 samples): sum T_i
+    frames valid and sent (the rows are packed: no padded frame is sent),
+    sum T_i^2 attention pairs valid and sent, and the pairs the kernel
+    multiplies, each clip's rows in warps of 16 by its keys in groups of
+    8."""
     fc, _ = small
     clips = _clips((9000, 24576, 30000, 50000, 12000))
     before_c, before_s = P.counters(), len(P.spans())
@@ -412,15 +513,13 @@ def test_traced_extraction_opens_the_spans_and_counts_the_shapes(small, tmp_path
              if k.startswith("w2v_bert.") and v != before_c.get(k, 0)}
     batches = [(N, [len(clips[i]) for i in idxs])
                for N, idxs in fitted_groups([len(y) for y in clips], 2, 320, DEFAULT_BUCKETS[-1])]
-    T = {b: W.frame_lengths(b) for b, _ in batches}
     t = [W.frame_lengths(len(y)) for y in clips]
     assert added == {"w2v_bert.batches": len(batches),
                      "w2v_bert.valid_frames": sum(t),
-                     "w2v_bert.sent_frames": sum(len(c) * T[b] for b, c in batches),
+                     "w2v_bert.sent_frames": sum(t),
                      "w2v_bert.attn_pairs_valid": sum(x * x for x in t),
-                     "w2v_bert.attn_pairs_sent": sum(len(c) * T[b] ** 2 for b, c in batches),
-                     "w2v_bert.attn_pairs_run": sum(16 * -(-max(x, 1) // 16) * 8 * -(-max(x, 1) // 8)
-                                                    for x in t)}
+                     "w2v_bert.attn_pairs_sent": sum(x * x for x in t),
+                     "w2v_bert.attn_pairs_run": sum(16 * -(-x // 16) * 8 * -(-x // 8) for x in t)}
     L = SMALL.num_hidden_layers
     for source in (names, ["stp." + s.name for s in mem if s.name.startswith("w2v_bert.")]):
         assert source.count("stp.w2v_bert.encode") == source.count("stp.w2v_bert.fbank") == len(batches)
@@ -459,15 +558,15 @@ def test_fitted_batches_give_each_clip_alone(small):
 # ------------------------------------------------------------ attention core
 
 def _formula(p, i, q, k, v, frames, cfg):
-    """The kernel's formula in float64, each clip on its own: rows and keys
-    i, j < max(T_b, 1), softmax_j((q_i . k_j + q_i . D[clamp(j - i, -64, 8)
-    + 64]) / sqrt(head_dim)) v."""
+    """The kernel's formula in float64, each clip on its own: over the rows
+    and keys i, j < T_b of q, k, v [B, T, D], softmax_j((q_i . k_j + q_i .
+    D[clamp(j - i, -64, 8) + 64]) / sqrt(head_dim)) v -> [T_b, D] a clip."""
     B, T, D = q.shape
     H = cfg.num_attention_heads
     dist = p[W.LAYER.format(i) + "self_attn.distance_embedding.weight"].double()
     out = []
     for b in range(B):
-        n = max(int(frames[b]), 1)
+        n = int(frames[b])
         rel = (torch.arange(n)[None, :] - torch.arange(n)[:, None]).clamp(-64, 8) + 64
         qh, kh, vh = (t[b, :n].double().view(n, H, D // H).transpose(0, 1) for t in (q, k, v))
         s = (qh @ kh.transpose(1, 2) + (qh[:, :, None, :] * dist[rel][None]).sum(-1)) / math.sqrt(D // H)
@@ -478,20 +577,26 @@ def _formula(p, i, q, k, v, frames, cfg):
 @pytest.mark.parametrize("frames,T", [([7], 7), ([1], 1), ([0], 3), ([0, 5], 5),
                                       ([45, 30, 1, 0, 45], 47), ([130, 64, 65, 3], 131)])
 def test_plain_attention_core_is_the_kernels_formula(frames, T):
-    """relkey_attention's plain path (q, k, v [B, T, D] and each clip's
-    frames in, [B, T, D] out): each clip's rows i < max(T_b, 1) are the
-    kernel's formula in float64, with distances past both clamps: odd T,
-    T = 1, ragged clips, clips of no frame."""
+    """relkey_attention's plain path on packed rows (each clip's frames of
+    q, k, v [B, T, D] packed to [R, D], and their Clips, in; [R, D] out):
+    each clip's rows are the kernel's formula in float64, with distances
+    past both clamps: odd T, T = 1, ragged clips, clips of no frame (no
+    row; a batch of none gives [0, D])."""
     p = _params(SMALL)
     B, D = len(frames), SMALL.hidden_size
     g = torch.Generator().manual_seed(T * 31 + B)
     q, k, v = (torch.randn(B, T, D, generator=g) for _ in range(3))
-    f = torch.tensor(frames, dtype=torch.int32)
-    got = W.relkey_attention(p, 1, q, k, v, f, SMALL)
-    assert got.shape == (B, T, D)
-    for b, ref in enumerate(_formula(p, 1, q, k, v, f, SMALL)):
+    f = torch.tensor(frames)
+    idx = W.pack_index(f, T)
+    got = W.relkey_attention(p, 1, *(t.reshape(B * T, D)[idx] for t in (q, k, v)),
+                             W.pack_clips(f, "cpu"), SMALL)
+    assert got.shape == (sum(frames), D)
+    s = 0
+    for ref in _formula(p, 1, q, k, v, f, SMALL):
         n = ref.shape[0]
-        assert float(((got[b, :n].double() - ref).abs() / (1 + ref.abs())).max()) < 1e-5
+        if n:
+            assert float(((got[s : s + n].double() - ref).abs() / (1 + ref.abs())).max()) < 1e-5
+        s += n
 
 
 def test_distance_index_clamps_left_and_right():
