@@ -219,6 +219,10 @@ KERNELS = {  # kernel (mode) -> (source, the TPU kernel it replaces, or None)
     "relkey_attention": ("stutter_tpu_torch/csrc/gated_attention.cu", None),
     # W2V-BERT's conv module core (GLU and causal depthwise conv, packed rows)
     "glu_depthwise": ("stutter_tpu_torch/csrc/glu_depthwise.cu", None),
+    # Parakeet's attention core (the kernel's third mode, head width 128) and
+    # conv module core (GLU, centred depthwise conv, SiLU): no JAX counterpart
+    "xl_attention": ("stutter_tpu_torch/csrc/gated_attention.cu", None),
+    "glu_conv_silu": ("stutter_tpu_torch/csrc/glu_depthwise.cu", None),
 }
 # the front end's kernels, which every featurizing path launches
 FRONT_END_KERNELS = ("spectromel", "spectromel_mel", "chroma_stats", "spectral_gate")
@@ -351,13 +355,17 @@ def launch_counts(reset: bool = False) -> dict:
     from stutter_tpu_torch.ops.spectral_gate import spectral_gate
     from stutter_tpu_torch.ops.spectromel import spectromel
 
+    from stutter_tpu_torch.models import parakeet
+
     counters = {"spectromel": (spectromel, "launches"),
                 "spectromel_mel": (spectromel, "mel_launches"),
                 "chroma_stats": (chroma_stats, "launches"),
                 "spectral_gate": (spectral_gate, "launches"),
                 "gated_attention": (wavlm.gated_attention, "launches"),
                 "relkey_attention": (w2v_bert.relkey_attention, "launches"),
-                "glu_depthwise": (w2v_bert.glu_depthwise, "launches")}
+                "glu_depthwise": (w2v_bert.glu_depthwise, "launches"),
+                "xl_attention": (parakeet.xl_attention, "launches"),
+                "glu_conv_silu": (parakeet.glu_conv_silu, "launches")}
     counts = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
     if reset:
         for obj, attr in counters.values():
@@ -2163,30 +2171,34 @@ def kernel_names(fn) -> list:
 def attention_phase(rng, dev) -> dict:
     """Phase 12: each mode of csrc/gated_attention.cu (WavLM's gated
     attention on padded rows, models/wavlm.gated_attention; W2V-BERT 2.0's
-    relative-key attention on packed rows, models/w2v_bert.relkey_attention)
-    at the corpus cells' shapes (kernel_phases.ATTENTION_SHAPES), each held
-    to the plain version on the CPU and timed beside it, SDPA and the bound;
-    csrc/glu_depthwise.cu (models/w2v_bert.glu_depthwise) at the same
-    shapes' clips, held to its plain version on the card and timed beside
-    it, the padded path's F.conv1d and the bound; then one encode call of
-    WavLM-Large and one of W2V-BERT 2.0 (drawn weights) on ENCODE_S's
-    clips, each one's launches counted from just before it to just after
-    it, and one W2V-BERT conv module call's kernels -> {kernel: {"shapes",
-    "encode"}}."""
+    relative-key attention on packed rows, models/w2v_bert.relkey_attention;
+    Parakeet's Transformer-XL attention at head width 128,
+    models/parakeet.xl_attention) at its cells' shapes
+    (kernel_phases.mode_shapes), each held to the plain version on the CPU
+    and timed beside it, SDPA and the bound; each instantiation of
+    csrc/glu_depthwise.cu (models/w2v_bert.glu_depthwise,
+    models/parakeet.glu_conv_silu) at the same shapes' clips, held to its
+    plain version on the card and timed beside it, the padded path's
+    F.conv1d and the bound; then one encode call of WavLM-Large, one of
+    W2V-BERT 2.0 and one of Parakeet-CTC-1.1B (drawn weights) on
+    ENCODE_S's clips, each one's launches counted from just before it to
+    just after it, and one conv module call's kernels of each Conformer ->
+    {kernel: {"shapes", "encode"}}."""
     import torch
 
-    from stutter_tpu_torch.config import W2VBertConfig, WavLMConfig
-    from stutter_tpu_torch.models import encoder_module, w2v_bert
+    from stutter_tpu_torch.config import ParakeetConfig, W2VBertConfig, WavLMConfig
+    from stutter_tpu_torch.models import encoder_module
     from stutter_tpu_torch.tools.kernel_phases import (
-        ATTENTION_MODES, ATTENTION_SHAPES, attention_check, attention_model, attention_ops,
-        clip_frames, conv1d_call, conv_bound, conv_check, frames_of, kernel_times, sdpa_call)
+        ATTENTION_MODES, CONV_MODES, attention_check, attention_model, attention_ops, clip_frames,
+        conv1d_call, conv_bound, conv_check, conv_model, frames_of, kernel_times, mode_shapes,
+        sdpa_call)
 
     res = {}
     for mode in ATTENTION_MODES:
         M, kernel = attention_model(mode)
         core, plain = getattr(M, kernel), getattr(M, f"{kernel}_plain")
         res[kernel] = {"tolerance": ATTN_TOL, "shapes": {}}
-        for B, T in ATTENTION_SHAPES:
+        for B, T in mode_shapes(mode):
             r = attention_check(B, T, dev, mode)
             p, cfg, *acts = inputs = r.pop("inputs")
             frames = frames_of(acts[-1])
@@ -2207,27 +2219,32 @@ def attention_phase(rng, dev) -> dict:
             res[kernel]["shapes"][f"{B}x{T}"] = r
             del inputs, p, acts, frames
 
-    res["glu_depthwise"] = {"tolerance": ATTN_TOL, "shapes": {}}
-    for B, T in ATTENTION_SHAPES:
-        r = conv_check(clip_frames(B, T, B * 1000 + T), dev)
-        x, w, clips = r.pop("inputs")
-        what = f"glu_depthwise B={B} T={T}"
-        check(r["gap"] <= ATTN_TOL, f"{what}: {r['gap']:.2e} from the plain version")
-        check(r["launches"] == 1, f"{what}: {r['launches']} launches a call")
-        check(r["extra_bytes"] <= 1 << 20, f"{what}: {r['extra_bytes']} bytes beyond the output")
-        check(not r["written_past_rows"] and r["again_equal"],
-              f"{what}: written past row R {r['written_past_rows']}, again equal {r['again_equal']}")
-        lib = conv1d_call(x, w, clips)
-        dev_ms = {k: sum(kernel_times(f).values()) for k, f in (
-            ("kernel", lambda: w2v_bert.glu_depthwise(x, w, clips)),
-            ("plain", lambda: w2v_bert.glu_depthwise_plain(x, w, clips)), ("library", lib))}
-        r.update(conv_bound(r["rows"], w.shape[0], w.shape[-1]), B=B,
-                 ms=time_ms(lambda: w2v_bert.glu_depthwise(x, w, clips)),
-                 plain_ms=time_ms(lambda: w2v_bert.glu_depthwise_plain(x, w, clips)),
-                 library_ms=time_ms(lib), device_ms=dev_ms["kernel"],
-                 plain_device_ms=dev_ms["plain"], library_device_ms=dev_ms["library"])
-        res["glu_depthwise"]["shapes"][f"{B}x{T}"] = r
-        del x, w, clips, lib
+    for mode in CONV_MODES:
+        M, kernel = conv_model(mode)
+        core, plain = getattr(M, kernel), getattr(M, f"{kernel}_plain")
+        res[kernel] = {"tolerance": ATTN_TOL, "shapes": {}}
+        for B, T in mode_shapes(mode):
+            r = conv_check(clip_frames(B, T, B * 1000 + T), dev, mode=mode)
+            x, w, clips = r.pop("inputs")
+            what = f"{kernel} B={B} T={T}"
+            check(r["gap"] <= ATTN_TOL, f"{what}: {r['gap']:.2e} from the plain version")
+            check(r["launches"] == 1, f"{what}: {r['launches']} launches a call")
+            check(r["extra_bytes"] <= 1 << 20,
+                  f"{what}: {r['extra_bytes']} bytes beyond the output")
+            check(not r["written_past_rows"] and r["again_equal"],
+                  f"{what}: written past row R {r['written_past_rows']}, "
+                  f"again equal {r['again_equal']}")
+            lib = conv1d_call(x, w, clips)
+            dev_ms = {k: sum(kernel_times(f).values()) for k, f in (
+                ("kernel", lambda: core(x, *w, clips)),
+                ("plain", lambda: plain(x, *w, clips)), ("library", lib))}
+            r.update(conv_bound(r["rows"], w[0].shape[0], w[0].shape[-1], mode), B=B,
+                     ms=time_ms(lambda: core(x, *w, clips)),
+                     plain_ms=time_ms(lambda: plain(x, *w, clips)),
+                     library_ms=time_ms(lib), device_ms=dev_ms["kernel"],
+                     plain_device_ms=dev_ms["plain"], library_device_ms=dev_ms["library"])
+            res[kernel]["shapes"][f"{B}x{T}"] = r
+            del x, w, clips, lib
 
     lengths = [int(s * SR) for s in ENCODE_S]
     audio = np.zeros((len(lengths), max(lengths)), np.float32)
@@ -2237,10 +2254,14 @@ def attention_phase(rng, dev) -> dict:
     # (kernel, model, config, the activations each layer's core reads and
     # writes: x, q, k, v and the output; q, k, v and the output; the
     # model's kernels, each once a layer)
-    encoders = (("gated_attention", "WavLM-Large", WavLMConfig(), 5, ("gated_attention",)),
+    # (kernel, model, config, the activations each layer's core reads and
+    # writes, the model's kernels each once a layer, its conv core's kernel)
+    encoders = (("gated_attention", "WavLM-Large", WavLMConfig(), 5, ("gated_attention",), None),
                 ("relkey_attention", "W2V-BERT 2.0", W2VBertConfig(), 4,
-                 ("relkey_attention", "glu_depthwise")))
-    for kernel, model, cfg, tensors, kernels in encoders:
+                 ("relkey_attention", "glu_depthwise"), "glu_depthwise"),
+                ("xl_attention", "Parakeet-CTC-1.1B", ParakeetConfig(), 4,
+                 ("xl_attention", "glu_conv_silu"), "glu_conv_silu"))
+    for kernel, model, cfg, tensors, kernels, conv_kernel in encoders:
         M = encoder_module(cfg)
         p = M.encoder_for(cfg).params(dev)
         M.encode(p, a, n, cfg)  # the bucket vector, cuDNN's algorithms
@@ -2254,33 +2275,39 @@ def attention_phase(rng, dev) -> dict:
               f"{what}: {launches}, {cfg.num_hidden_layers} layers")
         check(sum(launches.values()) == sum(launches[k] for k in kernels),
               f"{what}: other launches {launches}")
-        check(bool(torch.isfinite(emb).all()) and not emb[0].any(),
-              f"{what}: an embedding not finite, or the clip of no frame's not zero")
-        frames = [int(M.frame_lengths(x, cfg) if kernel == "gated_attention"
+        frames = [int(M.frame_lengths(x, cfg) if kernel != "relkey_attention"
                       else M.frame_lengths(x)) for x in lengths]
+        # the 0.01 s clip: no frame for WavLM and W2V-BERT, one for Parakeet
+        check(bool(torch.isfinite(emb).all()) and (frames[0] > 0 or not emb[0].any()),
+              f"{what}: an embedding not finite, or the clip of no frame's not zero")
         dev_ms = device_ms(lambda: M.encode(p, a, n, cfg))
         res[kernel]["encode"] = {
             "model": model, "clips": len(lengths), "frames": frames, "launches": launches,
             "ms": dev_ms.get(f"{kernel}_kernel", 0.0), "encode_device_ms": sum(dev_ms.values()),
             **bound(cfg.num_hidden_layers * 4 * tensors * cfg.hidden_size * sum(frames),
                     cfg.num_hidden_layers * attention_ops(frames, cfg))}
-        if kernel == "relkey_attention":
-            # the conv module: its kernel in place of ATen's depthwise conv
-            # and the two transposing copies around it
+        if conv_kernel is not None:
+            # the conv module: its kernel in place of a library's depthwise
+            # conv (the stem's grouped Conv2d aside) and transposing copies
             names = kernel_names(lambda: M.encode(p, a, n, cfg))
-            check(not any("conv_depthwise" in k for k in names),
-                  f"{what}: a depthwise conv of ATen's or cuDNN's: {names}")
-            clips = M.pack_clips(frames, dev)
+            if conv_kernel == "glu_depthwise":
+                check(not any("conv_depthwise" in k for k in names),
+                      f"{what}: a depthwise conv of ATen's or cuDNN's: {names}")
+            from stutter_tpu_torch.models.w2v_bert import pack_clips
+
+            clips = pack_clips(frames, dev)
             h = torch.randn(sum(frames), cfg.hidden_size, device=dev)
             conv = kernel_names(lambda: M.conv_module(p, 0, h, clips, cfg))
-            check(any("glu_depthwise_kernel" in k for k in conv)
+            check(any(f"{conv_kernel}_kernel" in k for k in conv)
                   and not any("copy" in k or "conv_depthwise" in k or "transpose" in k
                               for k in conv), f"{what}: the conv module's kernels {conv}")
             total = sum(frames) * cfg.num_hidden_layers
-            res["glu_depthwise"]["encode"] = {
+            taps = getattr(cfg, "conv_depthwise_kernel_size", None) or cfg.conv_kernel_size
+            res[conv_kernel]["encode"] = {
                 "model": model, "clips": len(lengths), "frames": frames, "launches": launches,
-                "ms": dev_ms.get("glu_depthwise_kernel", 0.0), "conv_module_kernels": conv,
-                **conv_bound(total, cfg.hidden_size, cfg.conv_depthwise_kernel_size)}
+                "ms": dev_ms.get(f"{conv_kernel}_kernel", 0.0), "conv_module_kernels": conv,
+                **conv_bound(total, cfg.hidden_size, taps,
+                             "centred" if conv_kernel == "glu_conv_silu" else "causal")}
             del h, clips
         M.release()
         del p, emb
@@ -2514,8 +2541,9 @@ def main() -> int:
              head["stream_vote"]["launches_one_pass"], head["stream_mlp"]["launches_one_pass"],
              head["launches_http"], train["launches"], train["serve"]["launches"],
              seq["launches"], seq["serve"]["launches"], par["launches"], timing["launches"],
-             # W2V-BERT's one encode call holds both of its kernels' launches
-             *(res["encode"]["launches"] for k, res in attn.items() if k != "glu_depthwise")]
+             # a Conformer's one encode call holds both of its kernels' launches
+             *(res["encode"]["launches"] for k, res in attn.items()
+               if k not in ("glu_depthwise", "glu_conv_silu"))]
     launches = {k: sum(p[k] for p in paths) for k in KERNELS}
     # (name, max abs error, batch-shape result, request-shape result,
     # stream-shape result); no single PyTorch call computes any of these
@@ -2544,12 +2572,19 @@ def main() -> int:
                     for pre, t in (("", r), ("request_", q), ("stream_", w))
                     for k in ("ms", "bound_ms")} if "stats_launch" in r else {})}
                for n, err, r, q, w in rows]
-    # each mode of the attention kernel and the conv module's kernel at the
-    # cells' largest batch and one request, SDPA (F.conv1d on the padded
+    # each mode of the attention kernel and each conv module kernel at its
+    # cell's largest batch and one request, SDPA (F.conv1d on the padded
     # batch) on the same inputs as the library's call; every shape and the
     # encode run
+    def size(key):
+        b, t = key.split("x")
+        return int(b) * int(t)
+
     for kernel, res in attn.items():
-        ab, aq, enc = res["shapes"]["64x440"], res["shapes"]["1x511"], res["encode"]
+        shapes = res["shapes"]
+        batch = max((k for k in shapes if not k.startswith("1x")), key=size)
+        request = next(k for k in shapes if k.startswith("1x"))
+        ab, aq, enc = shapes[batch], shapes[request], res["encode"]
         kernels.append({"name": kernel, "route": "cuda", "source": KERNELS[kernel][0],
                         "replaces": KERNELS[kernel][1], "launches": launches[kernel],
                         "max_rel_gap": max(r["gap"] for r in res["shapes"].values()),

@@ -183,14 +183,47 @@ class W2VBertConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParakeetConfig:
+    """A Parakeet-CTC FastConformer encoder (models/parakeet.py: a slaney
+    log-mel of 80 bins at 100 Hz, an 8x conv-subsampling stem, then
+    Conformer layers with Transformer-XL relative attention), its widths
+    under the names of nvidia/parakeet-ctc-1.1b's config.json (the
+    defaults: the published encoder, no CTC head; `scale_input` is
+    transformers' default, which no source at hand contradicts).  The
+    weights are the .npz `weights` (persist.save_wavlm, the checkpoint's
+    parameter names and BatchNorm's running statistics) or, without one,
+    drawn from `seed` on the device.  On a CUDA device the attention core
+    is the third mode of csrc/gated_attention.cu, which takes a head width
+    hidden_size / num_attention_heads of 128, and the conv module's core
+    csrc/glu_depthwise.cu's centred instantiation, which takes 9 taps;
+    another raises ValueError there (the CPU runs any)."""
+
+    hidden_size: int = 1024
+    num_hidden_layers: int = 42
+    num_attention_heads: int = 8
+    intermediate_size: int = 4096
+    conv_kernel_size: int = 9
+    subsampling_factor: int = 8
+    subsampling_conv_channels: int = 256
+    subsampling_conv_kernel_size: int = 3
+    subsampling_conv_stride: int = 2
+    num_mel_bins: int = 80
+    max_position_embeddings: int = 5000
+    scale_input: bool = True
+    seed: int = 0
+    weights: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
 class EmbeddingFeatureConfig(FeatureConfig):
     """Features that are a speech encoder's pooled embedding (the masked
     mean of its last hidden state over a clip's frames) followed by the
-    text placeholders: 1024 + 5 for WavLM-Large and for W2V-BERT 2.0.  The
+    text placeholders: 1024 + 5 for WavLM-Large, W2V-BERT 2.0 and
+    Parakeet-CTC-1.1B.  The
     front end's sample_rate is the encoder's input rate; its other fields
     go unused."""
 
-    encoder: WavLMConfig | W2VBertConfig = WavLMConfig()
+    encoder: WavLMConfig | W2VBertConfig | ParakeetConfig = WavLMConfig()
 
     @property
     def audio_feature_len(self) -> int:
@@ -204,6 +237,7 @@ class EmbeddingFeatureConfig(FeatureConfig):
 
 FEATURES_WAVLM = EmbeddingFeatureConfig()
 FEATURES_W2V_BERT = EmbeddingFeatureConfig(encoder=W2VBertConfig())
+FEATURES_PARAKEET = EmbeddingFeatureConfig(encoder=ParakeetConfig())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -85,23 +85,60 @@
 // take ~38 KB more shared memory than the gated mode's bias vector: two
 // blocks share an SM where the gated mode fits three.
 //
+// A third mode, `xl_attention_kernel`, is Parakeet's Transformer-XL
+// relative attention (models/parakeet.py; transformers'
+// ParakeetEncoderAttention) at a head width of 128:
+//
+//   out[b, i, h] = softmax_j(((q_i + u_h) . k_j + (q_i + v_h) . P[i - j, h])
+//                  / sqrt(128)) v,  over keys j < L_b,
+//
+// on packed rows as the relative-key mode reads them, where u, v [H, 128]
+// are the layer's bias_u and bias_v and P [2 T' - 1, H x 128] the layer's
+// relative_k_proj over the sinusoids of every distance i - j in
+// [-(T' - 1), T' - 1] (row T' - 1 + i - j; T' at least the longest clip),
+// one SGEMM a layer.  Every distance has its own row, per head, so no
+// small table holds the term: a 64 x 64 tile meets the 127 distances
+// i0 - j0 - 63 .. i0 - j0 + 63, 127 rows of 512 bytes.  The block keeps a
+// ring of 128 such rows in shared memory, indexed by (i - j) & 127: the
+// prologue loads i0 - 64 .. i0 + 63, and each next key tile needs 64 new
+// rows (64 further down), which load beside its keys with cp.async once
+// this tile's scores are done, into the slots of the 64 distances no
+// later tile meets.  A score's positional half is then the product of
+// q_i + v with the ring's row i - j, read along the tile's diagonals (the
+// rel-shift, in-kernel): a thread's 4 rows x 8 keys meet 18 distinct
+// distances, so each 4-deep step of the two products reads 8 float4 of q
+// (+ u, + v), 8 of k and 18 of the ring for 256 FMAs.  Nothing of size
+// T x T or T x 2T is written to device memory.  The head width of 128
+// doubles the q, k, v tiles (row stride 132) and each thread's output to
+// 4 rows x 16 columns; with the ring the block takes 188,416 bytes of
+// shared memory, one block of 4 warps an SM.  The body is the other
+// modes' (tiling, pipeline, online softmax, length bounds, packed rows,
+// pairs counter), templated on the head width: the two other modes are
+// its HD = 64 instances.
+//
 // No --use_fast_math (see _build.py).
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int HD = 64;        // head dim
 constexpr int BQ = 64;        // query rows a block
 constexpr int BK = 64;        // keys a tile
 constexpr int THREADS = 128;  // 4 warps x 16 query rows
 constexpr int GATE = 8;       // gru_rel_pos_linear's outputs: 2 groups of 4
-constexpr int LD = 68;        // row stride (floats) of the q, k and v tiles
 constexpr int LDP = 72;       // of the P tile (first the gate's x tile)
 constexpr int BD_LOADS = 8;   // bias gathers a thread keeps in flight
 constexpr int NREL_MAX = 80;  // distances a relative-key table holds: 10 groups of 8
+constexpr int RING = 128;     // XL: positional rows a block holds, a power of 2 >= BQ + BK - 1
+constexpr int XL_HD = 128;    // XL: the head width
 
-enum Mode { GATED = 0, RELKEY = 1 };
+// Row stride (floats) of the q, k and v tiles (and XL's ring) at head
+// width HD: 4 floats past it, so the 4 rows a warp reads at once fall on
+// different banks.
+template <int HD>
+__host__ __device__ constexpr int ld_of() { return HD + 4; }
+
+enum Mode { GATED = 0, RELKEY = 1, XL = 2 };
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -116,13 +153,16 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Rows r0 .. r0 + 63 of one head's [rows, 64] slice (row stride rs floats)
+// Rows r0 .. r0 + 63 of one head's [rows, HD] slice (row stride rs floats)
 // into a [64, ld] tile; rows at or past n_rows are zero-filled.
+template <int HD>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const float* src, int rs, int r0,
                                           int n_rows) {
+  constexpr int V = HD / 4, SH = HD == 64 ? 4 : 5;  // float4 a row, log2 of it
+  static_assert(V == 1 << SH, "a row of 16 or 32 float4");
 #pragma unroll
-  for (int it = 0; it < BQ * (HD / 4) / THREADS; ++it) {
-    const int e = threadIdx.x + it * THREADS, r = e >> 4, col = (e & 15) << 2;
+  for (int it = 0; it < BQ * V / THREADS; ++it) {
+    const int e = threadIdx.x + it * THREADS, r = e >> SH, col = (e & (V - 1)) << 2;
     const bool ok = r0 + r < n_rows;
     cp_async16(dst + r * ld + col, ok ? src + (long)(r0 + r) * rs + col : src, ok);
   }
@@ -131,9 +171,10 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const float* src, 
 // S += q k^T for this thread's 4 rows x 8 keys (keys c + 8 mm); with
 // PARTIAL only the key groups mm < nm, the rest of the tile being past the
 // clip's frames.
-template <bool PARTIAL>
+template <bool PARTIAL, int HD>
 __device__ __forceinline__ void scores(float (&S)[4][8], const float* Qs, const float* Ks,
                                        const int (&rr)[4], int c, int nm) {
+  constexpr int LD = ld_of<HD>();
 #pragma unroll 4
   for (int d = 0; d < HD; d += 4) {
     float4 qf[4], kf[8];
@@ -160,10 +201,11 @@ __device__ __forceinline__ void scores(float (&S)[4][8], const float* Qs, const 
 }
 
 // O += P v over the tile's first nj keys (a multiple of 8; 64 unless
-// PARTIAL) for this thread's 4 rows x columns 4 c .. + 3 and 32 + 4 c .. + 3.
-template <bool PARTIAL>
-__device__ __forceinline__ void weigh(float (&O)[4][8], const float* Ps, const float* Vs,
+// PARTIAL) for this thread's 4 rows x columns 32 w + 4 c .. + 3, w < HD / 32.
+template <bool PARTIAL, int HD>
+__device__ __forceinline__ void weigh(float (&O)[4][HD / 8], const float* Ps, const float* Vs,
                                       const int (&rr)[4], int c, int nj) {
+  constexpr int LD = ld_of<HD>(), W = HD / 32;
 #pragma unroll 2
   for (int j = 0; j < (PARTIAL ? nj : BK); j += 4) {
     float4 pf[4];
@@ -171,30 +213,133 @@ __device__ __forceinline__ void weigh(float (&O)[4][8], const float* Ps, const f
     for (int ii = 0; ii < 4; ++ii) pf[ii] = *reinterpret_cast<const float4*>(Ps + rr[ii] * LDP + j);
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
-      const float4 v0 = *reinterpret_cast<const float4*>(Vs + (j + jj) * LD + 4 * c);
-      const float4 v1 = *reinterpret_cast<const float4*>(Vs + (j + jj) * LD + 32 + 4 * c);
+      // width 64 as the two older modes always ran it: nvcc then gives them
+      // the registers they had (168, no spills); the loop below at 128
+      if constexpr (HD == 64) {
+        const float4 v0 = *reinterpret_cast<const float4*>(Vs + (j + jj) * LD + 4 * c);
+        const float4 v1 = *reinterpret_cast<const float4*>(Vs + (j + jj) * LD + 32 + 4 * c);
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const float p = jj == 0 ? pf[ii].x : jj == 1 ? pf[ii].y : jj == 2 ? pf[ii].z : pf[ii].w;
-        O[ii][0] = fmaf(p, v0.x, O[ii][0]);
-        O[ii][1] = fmaf(p, v0.y, O[ii][1]);
-        O[ii][2] = fmaf(p, v0.z, O[ii][2]);
-        O[ii][3] = fmaf(p, v0.w, O[ii][3]);
-        O[ii][4] = fmaf(p, v1.x, O[ii][4]);
-        O[ii][5] = fmaf(p, v1.y, O[ii][5]);
-        O[ii][6] = fmaf(p, v1.z, O[ii][6]);
-        O[ii][7] = fmaf(p, v1.w, O[ii][7]);
+        for (int ii = 0; ii < 4; ++ii) {
+          const float p = jj == 0 ? pf[ii].x : jj == 1 ? pf[ii].y : jj == 2 ? pf[ii].z : pf[ii].w;
+          O[ii][0] = fmaf(p, v0.x, O[ii][0]);
+          O[ii][1] = fmaf(p, v0.y, O[ii][1]);
+          O[ii][2] = fmaf(p, v0.z, O[ii][2]);
+          O[ii][3] = fmaf(p, v0.w, O[ii][3]);
+          O[ii][4] = fmaf(p, v1.x, O[ii][4]);
+          O[ii][5] = fmaf(p, v1.y, O[ii][5]);
+          O[ii][6] = fmaf(p, v1.z, O[ii][6]);
+          O[ii][7] = fmaf(p, v1.w, O[ii][7]);
+        }
+      } else {
+        float4 vw[W];
+#pragma unroll
+        for (int w = 0; w < W; ++w)
+          vw[w] = *reinterpret_cast<const float4*>(Vs + (j + jj) * LD + 32 * w + 4 * c);
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          const float p = jj == 0 ? pf[ii].x : jj == 1 ? pf[ii].y : jj == 2 ? pf[ii].z : pf[ii].w;
+#pragma unroll
+          for (int w = 0; w < W; ++w) {
+            O[ii][4 * w + 0] = fmaf(p, vw[w].x, O[ii][4 * w + 0]);
+            O[ii][4 * w + 1] = fmaf(p, vw[w].y, O[ii][4 * w + 1]);
+            O[ii][4 * w + 2] = fmaf(p, vw[w].z, O[ii][4 * w + 2]);
+            O[ii][4 * w + 3] = fmaf(p, vw[w].w, O[ii][4 * w + 3]);
+          }
+        }
       }
     }
   }
 }
 
+__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
+}
+
+// XL: S += (q + u) k^T + (q + v) P[i - j]^T for this thread's 4 rows x 8
+// keys (keys c + 8 mm; with PARTIAL only mm < nm), the two products in two
+// passes over the head dims (fewer registers live than one).  Row i - j of
+// the positional term lies in the ring at (i - j) & (RING - 1); a pair (ii,
+// mm) has i - j = base + 4 ii - 8 mm, base = i0 - j0 + rr[0] - c, so the 32
+// pairs meet the 18 distances t = ii - 2 mm + 14, each read once a step.
+template <bool PARTIAL>
+__device__ __forceinline__ void xl_scores(float (&S)[4][8], const float* Qs, const float* Ks,
+                                          const float* Rg, const float* Ub, const float* Vb,
+                                          const int (&rr)[4], int c, int nm, int base) {
+  constexpr int LD = ld_of<XL_HD>(), NT = 18;
+#pragma unroll 2
+  for (int d = 0; d < XL_HD; d += 4) {
+    const float4 u = *reinterpret_cast<const float4*>(Ub + d);
+    float4 qu[4];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      const float4 q = *reinterpret_cast<const float4*>(Qs + rr[ii] * LD + d);
+      qu[ii] = make_float4(q.x + u.x, q.y + u.y, q.z + u.z, q.w + u.w);
+    }
+#pragma unroll
+    for (int mm = 0; mm < 8; ++mm) {
+      if (PARTIAL && mm >= nm) continue;
+      const float4 kf = *reinterpret_cast<const float4*>(Ks + (c + 8 * mm) * LD + d);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) S[ii][mm] = dot4(qu[ii], kf, S[ii][mm]);
+    }
+  }
+  int ro[NT];  // the ring row of each distance, times LD
+#pragma unroll
+  for (int t = 0; t < NT; ++t) ro[t] = ((base + 4 * (t - 14)) & (RING - 1)) * LD;
+#pragma unroll 1
+  for (int d = 0; d < XL_HD; d += 4) {
+    const float4 w = *reinterpret_cast<const float4*>(Vb + d);
+    float4 qv[4];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      const float4 q = *reinterpret_cast<const float4*>(Qs + rr[ii] * LD + d);
+      qv[ii] = make_float4(q.x + w.x, q.y + w.y, q.z + w.z, q.w + w.w);
+    }
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      // the pairs of distance t: ii of t's parity, mm = (ii + 14 - t) / 2
+      bool any = false;
+#pragma unroll
+      for (int ii = t & 1; ii < 4; ii += 2) {
+        const int mm = (ii + 14 - t) / 2;
+        any |= mm >= 0 && mm < 8 && (!PARTIAL || mm < nm);
+      }
+      if (!any) continue;
+      const float4 pf = *reinterpret_cast<const float4*>(Rg + ro[t] + d);
+#pragma unroll
+      for (int ii = t & 1; ii < 4; ii += 2) {
+        const int mm = (ii + 14 - t) / 2;
+        if (mm < 0 || mm >= 8 || (PARTIAL && mm >= nm)) continue;
+        S[ii][mm] = dot4(qv[ii], pf, S[ii][mm]);
+      }
+    }
+  }
+}
+
+// XL: the positional rows of distances lo .. lo + n - 1 (one head's slice
+// of P, row stride ps floats, row T' - 1 + delta for delta in [-(T' - 1),
+// T' - 1]) into their ring slots; a distance outside that range is
+// zero-filled (its pairs are masked or unwritten).
+__device__ __forceinline__ void load_ring(float* Rg, const float* P, int ps, int Tp, int lo,
+                                          int n) {
+  constexpr int LD = ld_of<XL_HD>(), V = XL_HD / 4;
+  for (int e = threadIdx.x; e < n * V; e += THREADS) {
+    const int delta = lo + e / V, col = (e % V) * 4;
+    const bool ok = delta > -Tp && delta < Tp;
+    cp_async16(Rg + (delta & (RING - 1)) * LD + col, ok ? P + (long)(delta + Tp - 1) * ps + col : P,
+               ok);
+  }
+}
+
 // Tb[r * ldt + d] = q_r . D_d / 8 for this thread's 4 rows and the
 // distances d = c + 8 mm < nrel (mm < NREL_MAX / 8), from the q tile and D
-// in shared memory, tiled as q k^T is.
+// in shared memory, tiled as q k^T is (head width 64).
 __device__ __forceinline__ void rel_table(float* Tb, int ldt, const float* Qs, const float* Ds,
                                           const int (&rr)[4], int c, int nrel) {
-  constexpr int NG = NREL_MAX / 8;
+  constexpr int NG = NREL_MAX / 8, HD = 64, LD = ld_of<HD>();
   float S[4][NG];
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii)
@@ -231,12 +376,14 @@ __device__ __forceinline__ void rel_table(float* Tb, int ldt, const float* Qs, c
 // different banks.
 __host__ __device__ __forceinline__ int rel_stride(int nrel) { return nrel | 1; }
 
-// One block of either mode.  GATED reads x, gw, gb, gc, emb (layer 0's
-// bucket embedding), buckets, and `lengths` as each clip's frames of the
-// padded [B, T] rows; RELKEY reads emb as D [left + right + 1, 64], left
-// and right, and `lengths` as the packed rows' offsets [B + 1] (its batch
-// strides unused).
-template <int MODE>
+// One block of any mode, at head width HD (64, or 128 for XL).  GATED
+// reads x, gw, gb, gc, emb (layer 0's bucket embedding), buckets, and
+// `lengths` as each clip's frames of the padded [B, T] rows; RELKEY reads
+// emb as D [left + right + 1, 64], left and right, and `lengths` as the
+// packed rows' offsets [B + 1] (its batch strides unused); XL reads gw and
+// gb as bias_u and bias_v [H, 128], emb as the positional table P, R as
+// its T' and xsr as its row stride, and `lengths` as RELKEY does.
+template <int MODE, int HD>
 __device__ __forceinline__ void attention_block(
     const float* __restrict__ x, const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ gw, const float* __restrict__ gb,
@@ -244,6 +391,7 @@ __device__ __forceinline__ void attention_block(
     const int* __restrict__ lengths, float* __restrict__ out, unsigned long long* __restrict__ pairs,
     int T, int H, int R, int left, int right, int xsb, int xsr, int qsb, int qsr, int ksb, int ksr,
     int vsb, int vsr) {
+  constexpr int LD = ld_of<HD>();
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;            // [BQ, LD]
   float* Ks = Qs + BQ * LD;    // [BK, LD]
@@ -253,6 +401,8 @@ __device__ __forceinline__ void attention_block(
   const int nrel = left + right + 1, ldt = rel_stride(nrel);
   float* Tb = Bd;              // RELKEY: [BQ, ldt], q_i . D_d / 8
   float* Ds = Tb + BQ * ldt;   // RELKEY: D [nrel, LD]
+  float* Rg = Bd;              // XL: the positional ring [RING, LD]
+  float* Ub = Rg + RING * LD;  // XL: bias_u's and bias_v's head slices [2, HD]
   const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * BQ;
   // the clip's rows: GATED T padded rows at b x the batch strides, of which
   // L are its own; RELKEY its L packed rows from row0
@@ -271,10 +421,12 @@ __device__ __forceinline__ void attention_block(
   float* o = out + (MODE == GATED ? (long)b * T * D : row0 * D) + h * HD;
 
   if (i0 >= L) {  // every row of the tile is padding (none, packed)
+    constexpr int SH = HD == 64 ? 4 : 5;  // log2 of a row's float4
     for (int e = tid; e < BQ * (HD / 4); e += THREADS) {
-      const int r = i0 + (e >> 4);
+      const int r = i0 + (e >> SH);
       if (r < rows)
-        *reinterpret_cast<float4*>(o + (long)r * D + ((e & 15) << 2)) = make_float4(0, 0, 0, 0);
+        *reinterpret_cast<float4*>(o + (long)r * D + ((e & (HD / 4 - 1)) << 2)) =
+            make_float4(0, 0, 0, 0);
     }
     return;
   }
@@ -289,11 +441,11 @@ __device__ __forceinline__ void attention_block(
   float gr[4];  // GATED: the gate of each of this thread's rows
 
   if constexpr (MODE == GATED) {
-    load_tile(Ps, LDP, x + (long)b * xsb + h * HD, xsr, i0, T);
-    load_tile(Qs, LD, q + (long)b * qsb + h * HD, qsr, i0, T);
-    load_tile(Ks, LD, kb, ksr, 0, L);
+    load_tile<HD>(Ps, LDP, x + (long)b * xsb + h * HD, xsr, i0, T);
+    load_tile<HD>(Qs, LD, q + (long)b * qsb + h * HD, qsr, i0, T);
+    load_tile<HD>(Ks, LD, kb, ksr, 0, L);
     cp_async_commit();
-    load_tile(Vs, LD, vb, vsr, 0, L);
+    load_tile<HD>(Vs, LD, vb, vsr, 0, L);
     cp_async_commit();
 
     // the bias along j - i: Bd[j - (i - i0) + BQ - 1] for this tile's rows,
@@ -339,33 +491,49 @@ __device__ __forceinline__ void attention_block(
     __syncthreads();
 #pragma unroll
     for (int ii = 0; ii < 4; ++ii) gr[ii] = Ps[rr[ii] * LDP + HD];
-  } else {
+  } else if constexpr (MODE == RELKEY) {
     // q's tile and D, then the first key and value tiles, which load while
     // the table is filled
-    load_tile(Qs, LD, q + row0 * qsr + h * HD, qsr, i0, rows);
+    load_tile<HD>(Qs, LD, q + row0 * qsr + h * HD, qsr, i0, rows);
     for (int e = tid; e < nrel * (HD / 4); e += THREADS)
       cp_async16(Ds + (e >> 4) * LD + ((e & 15) << 2), emb + (e >> 4) * HD + ((e & 15) << 2),
                  true);
     cp_async_commit();
-    load_tile(Ks, LD, kb, ksr, 0, L);
+    load_tile<HD>(Ks, LD, kb, ksr, 0, L);
     cp_async_commit();
-    load_tile(Vs, LD, vb, vsr, 0, L);
+    load_tile<HD>(Vs, LD, vb, vsr, 0, L);
     cp_async_commit();
     cp_async_wait<2>();  // q and D are in
     __syncthreads();
     if (busy) rel_table(Tb, ldt, Qs, Ds, rr, c, nrel);
     cp_async_wait<1>();  // the first key tile is in
     __syncthreads();     // and every row's table written
+  } else {
+    // q's tile, the head's u and v, and the ring's rows of distances
+    // i0 - 64 .. i0 + 63 (the first key tile meets i0 - 63 .. i0 + 63),
+    // with the first key tile; then the first value tile
+    load_tile<HD>(Qs, LD, q + row0 * qsr + h * HD, qsr, i0, rows);
+    if (tid < 2 * (HD / 4)) {
+      const int half = tid / (HD / 4), col = (tid % (HD / 4)) * 4;
+      cp_async16(Ub + half * HD + col, (half ? gb : gw) + h * HD + col, true);
+    }
+    load_ring(Rg, emb + h * HD, xsr, R, i0 - BK, RING);
+    load_tile<HD>(Ks, LD, kb, ksr, 0, L);
+    cp_async_commit();
+    load_tile<HD>(Vs, LD, vb, vsr, 0, L);
+    cp_async_commit();
+    cp_async_wait<1>();  // q, u, v, the ring and the first key tile are in
+    __syncthreads();
   }
 
-  float O[4][8], m[4], l[4];
+  float O[4][HD / 8], m[4], l[4];
   int run = 0;  // pairs this thread multiplied in q k^T
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii) {
     m[ii] = -INFINITY;
     l[ii] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) O[ii][e] = 0.f;
+    for (int e = 0; e < HD / 8; ++e) O[ii][e] = 0.f;
   }
 
   for (int t = 0; t < n_kt; ++t) {
@@ -378,16 +546,26 @@ __device__ __forceinline__ void attention_block(
 #pragma unroll
       for (int mm = 0; mm < 8; ++mm) S[ii][mm] = 0.f;
     if (busy) {
-      if (nm == 8)
-        scores<false>(S, Qs, Ks, rr, c, 8);
-      else
-        scores<true>(S, Qs, Ks, rr, c, nm);
+      if constexpr (MODE == XL) {
+        const int base = i0 - j0 + rr[0] - c;
+        if (nm == 8)
+          xl_scores<false>(S, Qs, Ks, Rg, Ub, Ub + HD, rr, c, 8, base);
+        else
+          xl_scores<true>(S, Qs, Ks, Rg, Ub, Ub + HD, rr, c, nm, base);
+      } else {
+        if (nm == 8)
+          scores<false, HD>(S, Qs, Ks, rr, c, 8);
+        else
+          scores<true, HD>(S, Qs, Ks, rr, c, nm);
+      }
       run += 4 * nm;
     }
-    __syncthreads();  // the key tile is spent
+    __syncthreads();  // the key tile is spent (XL: and the ring's rows i0 - j0 .. + 63)
     const bool more = t + 1 < n_kt;
     if (more) {
-      load_tile(Ks, LD, kb, ksr, j0 + BK, L);
+      load_tile<HD>(Ks, LD, kb, ksr, j0 + BK, L);
+      // the next tile meets distances down to i0 - j0 - 127
+      if constexpr (MODE == XL) load_ring(Rg, emb + h * HD, xsr, R, i0 - j0 - 2 * BK, BK);
       cp_async_commit();
     }
 
@@ -400,6 +578,10 @@ __device__ __forceinline__ void attention_block(
         const float* bd = Bd + j0 + c - rr[ii] + BQ - 1;
 #pragma unroll
         for (int mm = 0; mm < 8; ++mm) S[ii][mm] = fmaf(S[ii][mm], 0.125f, gr[ii] * bd[8 * mm]);
+      } else if constexpr (MODE == XL) {
+        // 1 / sqrt(128)
+#pragma unroll
+        for (int mm = 0; mm < 8; ++mm) S[ii][mm] *= 0.08838834764831845f;
       } else {
         const float* tb = Tb + rr[ii] * ldt;
         const int rel = j0 + c - i0 - rr[ii];  // j - i of key group 0
@@ -427,7 +609,7 @@ __device__ __forceinline__ void attention_block(
       }
       l[ii] = l[ii] * corr + ls;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) O[ii][e] *= corr;
+      for (int e = 0; e < HD / 8; ++e) O[ii][e] *= corr;
     }
     if (more)
       cp_async_wait<1>();
@@ -437,13 +619,13 @@ __device__ __forceinline__ void attention_block(
 
     if (busy) {
       if (nm == 8)
-        weigh<false>(O, Ps, Vs, rr, c, BK);
+        weigh<false, HD>(O, Ps, Vs, rr, c, BK);
       else
-        weigh<true>(O, Ps, Vs, rr, c, 8 * nm);
+        weigh<true, HD>(O, Ps, Vs, rr, c, 8 * nm);
     }
     if (more) {
       __syncthreads();  // the value tile and P are spent
-      load_tile(Vs, LD, vb, vsr, j0 + BK, L);
+      load_tile<HD>(Vs, LD, vb, vsr, j0 + BK, L);
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();  // the next key tile is in
@@ -466,13 +648,21 @@ __device__ __forceinline__ void attention_block(
     lt += __shfl_xor_sync(0xffffffffu, lt, 4);
     const int i = i0 + rr[ii];
     if (i >= rows) continue;
-    float4 a = make_float4(0, 0, 0, 0), z = a;
-    if (i < L) {
-      a = make_float4(O[ii][0] / lt, O[ii][1] / lt, O[ii][2] / lt, O[ii][3] / lt);
-      z = make_float4(O[ii][4] / lt, O[ii][5] / lt, O[ii][6] / lt, O[ii][7] / lt);
+    if constexpr (HD == 64) {
+      float4 a = make_float4(0, 0, 0, 0), z = a;
+      if (i < L) {
+        a = make_float4(O[ii][0] / lt, O[ii][1] / lt, O[ii][2] / lt, O[ii][3] / lt);
+        z = make_float4(O[ii][4] / lt, O[ii][5] / lt, O[ii][6] / lt, O[ii][7] / lt);
+      }
+      *reinterpret_cast<float4*>(o + (long)i * D + 4 * c) = a;
+      *reinterpret_cast<float4*>(o + (long)i * D + 32 + 4 * c) = z;
+    } else {  // packed rows: i < L
+#pragma unroll
+      for (int w = 0; w < HD / 32; ++w)
+        *reinterpret_cast<float4*>(o + (long)i * D + 32 * w + 4 * c) =
+            make_float4(O[ii][4 * w] / lt, O[ii][4 * w + 1] / lt, O[ii][4 * w + 2] / lt,
+                        O[ii][4 * w + 3] / lt);
     }
-    *reinterpret_cast<float4*>(o + (long)i * D + 4 * c) = a;
-    *reinterpret_cast<float4*>(o + (long)i * D + 32 + 4 * c) = z;
   }
 }
 
@@ -485,8 +675,8 @@ __global__ void __launch_bounds__(THREADS, 3)
                            float* __restrict__ out, unsigned long long* __restrict__ pairs,
                            int T, int H, int R, int xsb, int xsr,
                            int qsb, int qsr, int ksb, int ksr, int vsb, int vsr) {
-  attention_block<GATED>(x, q, k, v, gw, gb, gc, emb, buckets, lengths, out, pairs, T, H, R, 0, 0,
-                         xsb, xsr, qsb, qsr, ksb, ksr, vsb, vsr);
+  attention_block<GATED, 64>(x, q, k, v, gw, gb, gc, emb, buckets, lengths, out, pairs, T, H, R, 0,
+                             0, xsb, xsr, qsb, qsr, ksb, ksr, vsb, vsr);
 }
 
 __global__ void __launch_bounds__(THREADS, 2)
@@ -495,20 +685,39 @@ __global__ void __launch_bounds__(THREADS, 2)
                             const int* __restrict__ offsets, float* __restrict__ out,
                             unsigned long long* __restrict__ pairs, int T, int H, int left,
                             int right, int qsr, int ksr, int vsr) {
-  attention_block<RELKEY>(nullptr, q, k, v, nullptr, nullptr, nullptr, dist, nullptr, offsets, out,
-                          pairs, T, H, 0, left, right, 0, 0, 0, qsr, 0, ksr, 0, vsr);
+  attention_block<RELKEY, 64>(nullptr, q, k, v, nullptr, nullptr, nullptr, dist, nullptr, offsets,
+                              out, pairs, T, H, 0, left, right, 0, 0, 0, qsr, 0, ksr, 0, vsr);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    xl_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ bias_u,
+                        const float* __restrict__ bias_v, const float* __restrict__ table,
+                        const int* __restrict__ offsets, float* __restrict__ out,
+                        unsigned long long* __restrict__ pairs, int T, int H, int Tp, int psr,
+                        int qsr, int ksr, int vsr) {
+  attention_block<XL, XL_HD>(nullptr, q, k, v, bias_u, bias_v, nullptr, table, nullptr, offsets,
+                             out, pairs, T, H, Tp, 0, 0, 0, psr, 0, qsr, 0, ksr, 0, vsr);
 }
 
 // Shared memory a block needs for T frames.
 int smem_bytes(int T) {
   const int n_keys = (T + BK - 1) / BK * BK;
-  return (int)sizeof(float) * (3 * BQ * LD + BQ * LDP + n_keys + BQ - 1);
+  return (int)sizeof(float) * (3 * BQ * ld_of<64>() + BQ * LDP + n_keys + BQ - 1);
 }
 
 // Shared memory a relative-key block needs for nrel distances: the table
 // and D in place of the bias vector.
 int relkey_smem_bytes(int nrel) {
+  constexpr int LD = ld_of<64>();
   return (int)sizeof(float) * (3 * BQ * LD + BQ * LDP + BQ * rel_stride(nrel) + nrel * LD);
+}
+
+// Shared memory an XL block needs: the q, k and v tiles at width 128, P,
+// the ring and u, v (188,416 bytes).
+constexpr int xl_smem_bytes() {
+  constexpr int LD = ld_of<XL_HD>();
+  return (int)sizeof(float) * (3 * BQ * LD + BQ * LDP + RING * LD + 2 * XL_HD);
 }
 
 }  // namespace
@@ -557,5 +766,29 @@ extern "C" int relkey_attention_launch(const void* q, const void* k, const void*
                             (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dist, (const int*)offsets,
       (float*)out, (unsigned long long*)pairs, T, H, left, right, qsr, ksr, vsr);
+  return (int)cudaGetLastError();
+}
+
+// q, k, v: [R, H x 128] float32 views of packed rows (last stride 1, the
+// row strides in floats, multiples of 4, 16-byte aligned); bias_u, bias_v
+// [H, 128] float32, contiguous; table [2 Tp - 1, H x 128] float32 (last
+// stride 1, row stride psr floats, a multiple of 4, 16-byte aligned), row
+// Tp - 1 + delta the positional projection of distance delta, Tp >= T;
+// offsets [B + 1] int32, clip b's rows offsets[b] .. offsets[b + 1] - 1; T
+// the longest clip's rows; out [R, H x 128]; pairs null, or a uint64 the
+// kernel adds the pairs it multiplied to.
+extern "C" int xl_attention_launch(const void* q, const void* k, const void* v,
+                                   const void* bias_u, const void* bias_v, const void* table,
+                                   const void* offsets, void* out, void* pairs, int B, int T, int H,
+                                   int Tp, int psr, int qsr, int ksr, int vsr, void* stream) {
+  if (B < 1 || T < 1 || H < 1 || Tp < T) return (int)cudaErrorInvalidValue;
+  constexpr int bytes = xl_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(xl_attention_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  xl_attention_kernel<<<dim3((T + BQ - 1) / BQ, H, B), THREADS, bytes, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)bias_u,
+      (const float*)bias_v, (const float*)table, (const int*)offsets, (float*)out,
+      (unsigned long long*)pairs, T, H, Tp, psr, qsr, ksr, vsr);
   return (int)cudaGetLastError();
 }

@@ -40,31 +40,50 @@
 //    row's clip start is replaced by zero, in the same order of summation;
 //  * no padded row and no copy: the output is [R, C], row for row.
 //
+// A second instantiation, `glu_conv_silu_kernel`, is Parakeet's conv
+// module core (models/parakeet.py): the GLU, a centred 9-tap depthwise conv
+// with a bias, and SiLU, BatchNorm (eval) folded into the taps and the bias
+// when the weights are loaded:
+//
+//   y[r, c] = silu(b[c] + sum_{k < 9} w[c, k] g[r - 4 + k, c]),
+//
+// g zero outside r's clip on both sides.  It is the same body with the
+// window centred (4 rows of halo above the tile, 4 below), each row's clip
+// end read beside its start, and the bias and SiLU as the epilogue: one
+// launch, each input read once from device memory, the output written
+// once.
+//
 // No --use_fast_math (see _build.py): the sigmoid is 1 / (1 + expf(-x)).
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int K = 31;        // taps (conv_depthwise_kernel_size)
-constexpr int HALO = K - 1;  // rows before a tile that its first row reads
 constexpr int ROWS = 64;     // output rows a block
 constexpr int CH = 32;       // channels a block
 constexpr int THREADS = 256;
 constexpr int RPT = 8;                     // output rows a thread
-constexpr int IN_ROWS = ROWS + HALO;       // staged rows a block
 constexpr int VEC = CH / 4;                // float4 a staged row's half
-constexpr int LOADS = (IN_ROWS * VEC + THREADS - 1) / THREADS;  // float4 pairs a thread
 
 static_assert(THREADS == CH * (ROWS / RPT), "one thread a channel and RPT rows");
 
-__global__ void __launch_bounds__(THREADS, 3)
-    glu_depthwise_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                         const int* __restrict__ offsets, float* __restrict__ y, int R, int C,
-                         int B) {
-  __shared__ __align__(16) float G[IN_ROWS * CH];  // g of rows r0 - HALO .. r0 + ROWS - 1
+// K taps; CENTRED: the window r - (K - 1) / 2 .. r + (K - 1) / 2 within the
+// clip, with the bias and SiLU after it; else causal, r - K + 1 .. r, no
+// bias.
+template <int K, bool CENTRED>
+__device__ __forceinline__ void conv_block(const float* __restrict__ x, const float* __restrict__ w,
+                                           const float* __restrict__ bias,
+                                           const int* __restrict__ offsets, float* __restrict__ y,
+                                           int R, int C, int B) {
+  constexpr int HALO = CENTRED ? (K - 1) / 2 : K - 1;  // rows before a tile that its first row reads
+  constexpr int IN_ROWS = ROWS + K - 1;                // staged rows a block
+  constexpr int LOADS = (IN_ROWS * VEC + THREADS - 1) / THREADS;  // float4 pairs a thread
+  __shared__ __align__(16) float G[IN_ROWS * CH];  // g of rows r0 - HALO .. r0 + ROWS + K - 2 - HALO
   __shared__ float Ws[CH * K];
-  __shared__ int start[ROWS];                      // each output row's clip start
+  // each output row's clip start, and (CENTRED) its clip's end
+  __shared__ int bounds[CENTRED ? 2 * ROWS : ROWS];
+  int* start = bounds;
+  int* end = bounds + ROWS;
   const int tid = threadIdx.x;
   const int r0 = blockIdx.x * ROWS, c0 = blockIdx.y * CH;
 
@@ -90,6 +109,7 @@ __global__ void __launch_bounds__(THREADS, 3)
       if (__ldg(offsets + mid) <= r) lo = mid; else hi = mid;
     }
     start[tid] = __ldg(offsets + lo);
+    if constexpr (CENTRED) end[tid] = __ldg(offsets + lo + 1);
   }
 #pragma unroll
   for (int u = 0; u < LOADS; ++u) {
@@ -107,19 +127,36 @@ __global__ void __launch_bounds__(THREADS, 3)
 
   const int c = tid % CH, t0 = (tid / CH) * RPT;  // channel; first output row in the tile
   if (r0 + t0 >= R) return;
-  float in[RPT + HALO], acc[RPT];
+  float in[RPT + K - 1], acc[RPT];
 #pragma unroll
-  for (int j = 0; j < RPT + HALO; ++j) in[j] = G[(t0 + j) * CH + c];
+  for (int j = 0; j < RPT + K - 1; ++j) in[j] = G[(t0 + j) * CH + c];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
   const float* wc = Ws + c * K;
-  // starts rise with the row: the last row's is the window's largest
-  if (start[t0 + RPT - 1] <= r0 + t0 - HALO) {
+  // starts and ends rise with the row: the last row's start is the
+  // window's largest, the first row's end its smallest
+  bool inside = start[t0 + RPT - 1] <= r0 + t0 - HALO;
+  if constexpr (CENTRED) inside = inside && end[t0] >= r0 + t0 + RPT + K - 1 - HALO;
+  if (inside) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const float wk = wc[k];
 #pragma unroll
       for (int i = 0; i < RPT; ++i) acc[i] = fmaf(wk, in[i + k], acc[i]);
+    }
+  } else if constexpr (CENTRED) {
+    int first[RPT], last[RPT];  // a row's taps inside its clip: first .. last - 1
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      first[i] = start[t0 + i] - (r0 + t0 + i - HALO);
+      last[i] = end[t0 + i] - (r0 + t0 + i - HALO);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float wk = wc[k];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+        acc[i] = fmaf(wk, k >= first[i] && k < last[i] ? in[i + k] : 0.f, acc[i]);
     }
   } else {
     int first[RPT];  // a row's first tap inside its clip
@@ -132,11 +169,32 @@ __global__ void __launch_bounds__(THREADS, 3)
       for (int i = 0; i < RPT; ++i) acc[i] = fmaf(wk, k >= first[i] ? in[i + k] : 0.f, acc[i]);
     }
   }
+  float bc = 0.f;
+  if constexpr (CENTRED) bc = __ldg(bias + c0 + c);
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = r0 + t0 + i;
-    if (r < R) y[(long)r * C + c0 + c] = acc[i];
+    float a = acc[i];
+    if constexpr (CENTRED) {
+      a += bc;
+      a = a * (1.f / (1.f + expf(-a)));
+    }
+    if (r < R) y[(long)r * C + c0 + c] = a;
   }
+}
+
+__global__ void __launch_bounds__(THREADS, 3)
+    glu_depthwise_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                         const int* __restrict__ offsets, float* __restrict__ y, int R, int C,
+                         int B) {
+  conv_block<31, false>(x, w, nullptr, offsets, y, R, C, B);
+}
+
+__global__ void __launch_bounds__(THREADS, 3)
+    glu_conv_silu_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                         const float* __restrict__ bias, const int* __restrict__ offsets,
+                         float* __restrict__ y, int R, int C, int B) {
+  conv_block<9, true>(x, w, bias, offsets, y, R, C, B);
 }
 
 }  // namespace
@@ -150,5 +208,19 @@ extern "C" int glu_depthwise_launch(const void* x, const void* w, const void* of
   if (R < 1 || B < 1 || C < CH || C % CH) return (int)cudaErrorInvalidValue;
   glu_depthwise_kernel<<<dim3((R + ROWS - 1) / ROWS, C / CH), THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)w, (const int*)offsets, (float*)y, R, C, B);
+  return (int)cudaGetLastError();
+}
+
+// x [R, 2 C] float32, contiguous and 16-byte aligned (C a multiple of 32);
+// w [C, 9] float32, contiguous (the folded taps); bias [C] float32;
+// offsets [B + 1] int32 as glu_depthwise_launch's; y [R, C] float32,
+// contiguous.
+extern "C" int glu_conv_silu_launch(const void* x, const void* w, const void* bias,
+                                    const void* offsets, void* y, int R, int C, int B,
+                                    void* stream) {
+  if (R < 1 || B < 1 || C < CH || C % CH) return (int)cudaErrorInvalidValue;
+  glu_conv_silu_kernel<<<dim3((R + ROWS - 1) / ROWS, C / CH), THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)w, (const float*)bias, (const int*)offsets, (float*)y, R, C,
+      B);
   return (int)cudaGetLastError();
 }

@@ -60,11 +60,13 @@ def denoise_clips(
 ) -> list[np.ndarray]:
     """Host wrapper: denoise a list of 1-D clips, in the batches of
     ops.frontend.bucket_groups, on `device` (ops.frontend.host_batches).
+    A clip longer than the largest bucket is padded to a multiple of it and
+    comes back whole.
     Traced, the call is the span `denoise_clips`, each batch's leaves pad,
     h2d, `denoise_batch` (the launches), d2h and unpad."""
     device = resolve_device(device)
     out: list[np.ndarray | None] = [None] * len(clips)
-    groups = bucket_groups([len(y) for y in clips], batch_size)
+    groups = bucket_groups([len(y) for y in clips], batch_size, whole=True)
     # denoise_batch is looked up at each call, so a replacement of it is what runs
     for chunk, lens, cleaned in host_batches("denoise_clips", clips, groups,
                                              lambda a, n: denoise_batch(a, n, cfg), (device,),

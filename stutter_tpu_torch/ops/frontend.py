@@ -80,22 +80,24 @@ def extract_features_149_batch(
     return torch.where((n_valid >= 9)[:, None], feats, 0.0)
 
 
-def pad_to_bucket(n: int, buckets=DEFAULT_BUCKETS) -> int:
-    """Smallest bucket >= n; clips beyond the largest bucket are cut to it."""
+def pad_to_bucket(n: int, buckets=DEFAULT_BUCKETS, whole: bool = False) -> int:
+    """Smallest bucket >= n; a clip beyond the largest bucket is cut to it,
+    or, with `whole`, padded to the next multiple of it."""
     for b in buckets:
         if n <= b:
             return b
-    return buckets[-1]
+    return -(-n // buckets[-1]) * buckets[-1] if whole else buckets[-1]
 
 
-def bucket_groups(lengths, batch_size: int, buckets=DEFAULT_BUCKETS) -> list[tuple[int, list[int]]]:
+def bucket_groups(lengths, batch_size: int, buckets=DEFAULT_BUCKETS,
+                  whole: bool = False) -> list[tuple[int, list[int]]]:
     """[(N, idxs), ...]: the clips of `lengths` samples grouped by sample
-    bucket (pad_to_bucket), the buckets in the order they first come up,
-    each bucket's clips in input order and in chunks of batch_size, N the
-    bucket."""
+    bucket (pad_to_bucket, `whole` as there), the buckets in the order they
+    first come up, each bucket's clips in input order and in chunks of
+    batch_size, N the bucket."""
     by_bucket: dict[int, list[int]] = {}
     for i, n in enumerate(lengths):
-        by_bucket.setdefault(pad_to_bucket(n, buckets), []).append(i)
+        by_bucket.setdefault(pad_to_bucket(n, buckets, whole), []).append(i)
     return [(b, idxs[s : s + batch_size]) for b, idxs in by_bucket.items()
             for s in range(0, len(idxs), batch_size)]
 
@@ -220,7 +222,8 @@ def host_batches(owner: str, clips: list[np.ndarray], groups, batch_fn, mesh,
     yields (idxs, lengths [rows], host output [rows, ...]).  Traced, the
     loop is the span `owner` and each batch `<owner>.batch`, whose leaves
     are pad, h2d, `launch_span`, d2h and what the caller does with the
-    yield (count_batch counts it)."""
+    yield (count_batch counts it; `<owner>.cut_samples` the samples of the
+    clips that N cut off)."""
     pinned = any(d.type == "cuda" for d in mesh)
     with span(owner), STAGES.checkout(pinned) as stage:
         for bucket, chunk in groups:
@@ -236,6 +239,8 @@ def host_batches(owner: str, clips: list[np.ndarray], groups, batch_fn, mesh,
                     host_out = gather(outs)
                 if tracing():
                     count_batch(owner, batch, lens)
+                    count(f"{owner}.cut_samples",
+                          sum(len(clips[i]) for i in chunk) - int(lens.sum()))
                 yield chunk, lens, host_out
 
 
@@ -253,8 +258,11 @@ def run_bucketed(
     order.  A `batch_fn` that carries a `frame_stride` (an encoder whose
     output for a clip does not depend on N: models/wavlm.batch_fn_for) gets
     fitted_groups, the clips by length, each batch padded only to its
-    longest clip in whole strides; every other gets bucket_groups over
-    `buckets`.  The mesh is `mesh`, or every visible GPU for an unindexed
+    longest clip in whole strides, each clip cut to the batch_fn's
+    `max_samples` where it carries one (models/parakeet.batch_fn_for: the
+    longest recording it takes whole) and to the largest bucket where it
+    does not; every other gets bucket_groups over `buckets`, which cut a
+    clip to the largest bucket.  The mesh is `mesh`, or every visible GPU for an unindexed
     `cuda` and the one device asked for otherwise
     (parallel.mesh.resolve_mesh); the outputs of the rows that round a
     batch up to the mesh are dropped.  Traced, the call is the span
@@ -264,7 +272,8 @@ def run_bucketed(
     out = np.zeros((len(clips), out_dim), np.float32)
     step = getattr(batch_fn, "frame_stride", None)
     lengths = [len(y) for y in clips]
-    groups = (fitted_groups(lengths, batch_size, step, buckets[-1]) if step
+    cap = getattr(batch_fn, "max_samples", None) or buckets[-1]
+    groups = (fitted_groups(lengths, batch_size, step, cap) if step
               else bucket_groups(lengths, batch_size, buckets))
     for chunk, _, got in host_batches("run_bucketed", clips, groups, batch_fn, mesh,
                                       "run_bucketed.launch"):

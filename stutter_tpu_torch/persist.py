@@ -8,7 +8,7 @@ there serve here unchanged:
   model_<arch>.npz            a sequence head's params (flattened names)
   model_<arch>_norm.npz       its per-feature mean / std
   model_<arch>.json           {"arch", "classes", "kind"}
-  <name>.npz                  a WavLM or W2V-BERT encoder's weights under
+  <name>.npz                  a WavLM, W2V-BERT or Parakeet encoder's weights under
                               the checkpoint's parameter names
                               (save_wavlm)
 and, where sklearn and joblib are installed, the reference's pickles
@@ -90,16 +90,18 @@ def load_mlp(path: str | Path, device: torch.device | str = "cuda") -> SeedMLP:
 
 
 def save_wavlm(path: str | Path, params: dict) -> None:
-    """A speech encoder's weights (models/wavlm.py, models/w2v_bert.py:
-    name -> tensor, the checkpoint's names) as one .npz, float32."""
+    """A speech encoder's weights (models/wavlm.py, models/w2v_bert.py,
+    models/parakeet.py: name -> tensor, the checkpoint's names) as one
+    .npz, float32."""
     np.savez(str(path), **{k: v.detach().cpu().numpy().astype(np.float32)
                            for k, v in params.items()})
 
 
 def load_wavlm(path: str | Path, cfg, device: torch.device | str = "cuda") -> dict:
     """The .npz of save_wavlm -> {name: tensor on `device`}; raises unless
-    it holds exactly the parameters of `cfg` (a WavLMConfig, or a
-    W2VBertConfig: models.encoder_module's param_shapes), shape for shape."""
+    it holds exactly the parameters of `cfg` (a WavLMConfig, a
+    W2VBertConfig or a ParakeetConfig: models.encoder_module's
+    param_shapes), shape for shape."""
     from stutter_tpu_torch.models import encoder_module
 
     device = resolve_device(device)

@@ -35,13 +35,17 @@ of no frames -- beside its bound (the benchmark's counted FP32 operations
 over 67 TFLOP/s), the plain version and F.scaled_dot_product_attention on
 the bias and mask the plain version builds (a yardstick the port never
 calls), with the kernels each call launched and the device memory it
-allocated: one JSON line a mode and shape (`"mode"`).  With --conv it
-times csrc/glu_depthwise.cu (models/w2v_bert.glu_depthwise, the conv
-module's GLU and causal depthwise conv on packed rows) at the same clips'
-frames beside its bound (12 bytes a value over 3.35 TB/s), its plain
-version and the padded path's GLU and F.conv1d between two transposes
-(conv1d_call, a yardstick the port no longer calls): one JSON line a
-shape.
+allocated: one JSON line a mode and shape (`"mode"`); Parakeet's
+Transformer-XL mode at head width 128 (models/parakeet.xl_attention, packed
+rows) at XL_SHAPES, the long-form cell's fitted batches of 8 and one
+recording of 1,856 frames.  With --conv it times csrc/glu_depthwise.cu
+(CONV_MODES: models/w2v_bert.glu_depthwise, the conv module's GLU and
+causal 31-tap depthwise conv on packed rows, at ATTENTION_SHAPES' clips;
+models/parakeet.glu_conv_silu, the GLU, the centred 9-tap conv with
+BatchNorm folded in and SiLU, at XL_SHAPES' clips) beside its bound (12
+bytes a value over 3.35 TB/s), its plain version and the padded path's
+GLU and F.conv1d between two transposes (conv1d_call, a yardstick the
+port does not call): one JSON line a mode and shape.
 
 With --stats it instead times each kernel of the stats-mode wrapper at
 B=256 x 3 s, at the MLP stream's [64, 48128] and at one 3 s request (only
@@ -412,8 +416,20 @@ FP32_RATE = 67e12  # one H100 SXM's FP32 FLOP/s outside the tensor cores
 HBM_RATE = 3.35e12  # its device memory's bytes/s
 
 
+# (B, T_pad) of Parakeet's attention: the long-form cell's four fitted
+# batches of 8 recordings (57, 78, 105 and 148 s), one 148 s recording
+XL_SHAPES = ((8, 719), (8, 978), (8, 1317), (8, 1856), (1, 1856))
+
 # csrc/gated_attention.cu's modes -> (the model module, its attention core)
-ATTENTION_MODES = {"gated": ("wavlm", "gated_attention"), "relkey": ("w2v_bert", "relkey_attention")}
+ATTENTION_MODES = {"gated": ("wavlm", "gated_attention"), "relkey": ("w2v_bert", "relkey_attention"),
+                   "xl": ("parakeet", "xl_attention")}
+# csrc/glu_depthwise.cu's instantiations -> (the model module, its conv core)
+CONV_MODES = {"causal": ("w2v_bert", "glu_depthwise"), "centred": ("parakeet", "glu_conv_silu")}
+
+
+def mode_shapes(mode: str):
+    """The (B, T_pad) shapes a mode of either kernel is timed at."""
+    return XL_SHAPES if mode in ("xl", "centred") else ATTENTION_SHAPES
 
 
 def attention_model(mode: str):
@@ -460,13 +476,15 @@ def attention_inputs(B: int, T: int, seed: int, device, cfg=None, mode: str = "g
     "gated": q, k, v [B, T, D] slices of one [B, T, 3 D] tensor, and the
     frames -> (p, cfg, x, q, k, v, frames int32).  "relkey": the same
     draws' rows of each clip's frames packed, q, k, v [R, D] slices of one
-    [R, 3 D] tensor, and their Clips -> (p, cfg, q, k, v, clips)."""
+    [R, 3 D] tensor, and their Clips -> (p, cfg, q, k, v, clips).  "xl"
+    (Parakeet's widths): bias_u and bias_v, the packed q, k, v, a drawn
+    position table [2 T - 1, D] -> (p, cfg, q, k, v, table, clips)."""
     import torch
 
-    from stutter_tpu_torch.config import W2VBertConfig, WavLMConfig
+    from stutter_tpu_torch.config import ParakeetConfig, W2VBertConfig, WavLMConfig
 
     M, _ = attention_model(mode)
-    cfg = cfg or (WavLMConfig() if mode == "gated" else W2VBertConfig())
+    cfg = cfg or {"gated": WavLMConfig, "relkey": W2VBertConfig, "xl": ParakeetConfig}[mode]()
     D, H = cfg.hidden_size, cfg.num_attention_heads
     g = torch.Generator().manual_seed(seed)
     if mode == "gated":
@@ -476,18 +494,26 @@ def attention_inputs(B: int, T: int, seed: int, device, cfg=None, mode: str = "g
              pre + "gru_rel_pos_linear.bias": 0.1 * torch.randn(M.GATE_DIM, generator=g),
              pre + "gru_rel_pos_const": 1 + 0.5 * torch.randn(1, H, 1, 1, generator=g)}
         acts = (torch.randn(B, T, D, generator=g).to(device),)
-    else:
+    elif mode == "relkey":
         nrel = cfg.left_max_position_embeddings + cfg.right_max_position_embeddings + 1
         p = {M.LAYER.format(0) + "self_attn.distance_embedding.weight":
              torch.randn(nrel, D // H, generator=g)}
         acts = ()
+    else:
+        pre = M.LAYER.format(0) + "self_attn."
+        p = {pre + "bias_u": 0.5 * torch.randn(H, D // H, generator=g),
+             pre + "bias_v": 0.5 * torch.randn(H, D // H, generator=g)}
+        acts = ()
     p = {k: t.to(device) for k, t in p.items()}
     qkv = torch.randn(B, T, 3 * D, generator=g)
     frames = clip_frames(B, T, seed)
-    if mode == "relkey":
+    if mode != "gated":
+        from stutter_tpu_torch.models.w2v_bert import pack_clips, pack_index
+
         f = torch.from_numpy(frames)
-        qkv = qkv.reshape(B * T, 3 * D)[M.pack_index(f, T)]
-        return (p, cfg, *qkv.to(device).split(D, dim=-1), M.pack_clips(f, device))
+        qkv = qkv.reshape(B * T, 3 * D)[pack_index(f, T)]
+        table = (torch.randn(2 * T - 1, D, generator=g).to(device),) if mode == "xl" else ()
+        return (p, cfg, *qkv.to(device).split(D, dim=-1), *table, pack_clips(f, device))
     q, k, v = qkv.to(device).split(D, dim=-1)
     return (p, cfg, *acts, q, k, v, torch.tensor(frames, dtype=torch.int32, device=device))
 
@@ -495,18 +521,23 @@ def attention_inputs(B: int, T: int, seed: int, device, cfg=None, mode: str = "g
 def attention_ops(frames, cfg) -> float:
     """FP32 operations of the attention core of `cfg`'s model over clips of
     these frames, as the benchmark counts them (the attention of
-    benchmark/counts/wavlm.py and counts/w2v_bert.py, which CPU tests hold
-    this to): a row's term -- WavLM's gate, or W2V-BERT's table of q . D
-    over the left + right + 1 distances a head --, 8 a score for the bias,
-    mask, scale and softmax, 2 x 2 x d a pair."""
-    from stutter_tpu_torch.config import W2VBertConfig
+    benchmark/counts/wavlm.py, counts/w2v_bert.py and counts/parakeet.py,
+    which CPU tests hold this to): a row's term -- WavLM's gate, W2V-BERT's
+    table of q . D over the left + right + 1 distances a head, Parakeet's
+    q + u and q + v --, 8 a score for the bias, mask, scale and softmax, 2
+    x 2 x d a pair (Parakeet: 3 x 2 x d, the positional product beside q
+    k^T and P v)."""
+    from stutter_tpu_torch.config import ParakeetConfig, W2VBertConfig
 
     d, h = cfg.hidden_size, cfg.num_attention_heads
-    if isinstance(cfg, W2VBertConfig):
+    pair = 4 * d
+    if isinstance(cfg, ParakeetConfig):
+        row, pair = 2 * d, 6 * d
+    elif isinstance(cfg, W2VBertConfig):
         row = 2 * d * (cfg.left_max_position_embeddings + cfg.right_max_position_embeddings + 1)
     else:
         row = h * (2 * (d // h) * 8 + 18)
-    return float(sum(int(t) * row + h * int(t) ** 2 * 8 + 4 * int(t) ** 2 * d for t in frames))
+    return float(sum(int(t) * row + h * int(t) ** 2 * 8 + int(t) ** 2 * pair for t in frames))
 
 
 def attention_check(B: int, T: int, dev, mode: str = "gated") -> dict:
@@ -525,7 +556,7 @@ def attention_check(B: int, T: int, dev, mode: str = "gated") -> dict:
     M, name = attention_model(mode)
     core, cuda, plain = (getattr(M, name), getattr(M, f"_{name}_cuda"),
                          getattr(M, f"{name}_plain"))
-    inputs = attention_inputs(B, T, B * 1000 + T + (7 if mode == "relkey" else 0), dev, mode=mode)
+    inputs = attention_inputs(B, T, B * 1000 + T + (7 if mode != "gated" else 0), dev, mode=mode)
     p, cfg, *acts = inputs
     frames = frames_of(acts[-1])
     core(p, 0, *acts, cfg)  # builds and caches what a first call builds
@@ -566,10 +597,13 @@ def sdpa_call(p, cfg, *acts):
     import torch
     import torch.nn.functional as F
 
-    from stutter_tpu_torch.config import W2VBertConfig
-    from stutter_tpu_torch.models import w2v_bert, wavlm
+    from stutter_tpu_torch.config import ParakeetConfig, W2VBertConfig
+    from stutter_tpu_torch.models import parakeet, w2v_bert, wavlm
 
-    *_, q, k, v, last = acts
+    if isinstance(cfg, ParakeetConfig):
+        q, k, v, pos, last = acts
+    else:
+        *_, q, k, v, last = acts
     frames = frames_of(last)
     if q.dim() == 2:  # packed rows, laid out [B, T] for the library
         B, T, D = len(frames), last.longest, q.shape[-1]
@@ -579,6 +613,9 @@ def sdpa_call(p, cfg, *acts):
     frames = frames.to(q.device)
     H = cfg.num_attention_heads
     q4, k4, v4 = (t.reshape(B, T, H, -1).transpose(1, 2) for t in (q, k, v))
+    if isinstance(cfg, ParakeetConfig):
+        qu, mask = parakeet.xl_terms(p, 0, q4, pos, frames)
+        return lambda: F.scaled_dot_product_attention(qu, k4, v4, attn_mask=mask)
     if isinstance(cfg, W2VBertConfig):
         idx = w2v_bert.distance_index(T, cfg.left_max_position_embeddings,
                                       cfg.right_max_position_embeddings, q.device)
@@ -599,7 +636,7 @@ def attention_times(dev, card: str) -> None:
     for mode in ATTENTION_MODES:
         M, name = attention_model(mode)
         core, plain = getattr(M, name), getattr(M, f"{name}_plain")
-        for B, T in ATTENTION_SHAPES:
+        for B, T in mode_shapes(mode):
             res = attention_check(B, T, dev, mode)
             p, cfg, *acts = inputs = res.pop("inputs")
             kernel = kernel_times(lambda: core(p, 0, *acts, cfg))
@@ -612,102 +649,130 @@ def attention_times(dev, card: str) -> None:
                 "bound_ms": ops / FP32_RATE * 1e3, "flops": ops, "card": card}), flush=True)
 
 
-def conv_inputs(frames, seed: int, device, cfg=None):
-    """Layer 0's conv module core at `cfg`'s widths (W2V-BERT 2.0's by
-    default) over clips of `frames` rows, packed: x [R, 2 C] (what the
-    first pointwise conv gives), the depthwise conv's weight [C, 1, K] at
-    its initial scale and the Clips -> (x, w, clips)."""
+def conv_model(mode: str):
+    """`mode`'s model module and its conv core there: <name> (on a CUDA
+    tensor the kernel, on a CPU tensor the plain version), its launch
+    _<name>_cuda, its plain version <name>_plain, its launches
+    <name>.launches."""
+    import importlib
+
+    module, name = CONV_MODES[mode]
+    return importlib.import_module(f"stutter_tpu_torch.models.{module}"), name
+
+
+def conv_inputs(frames, seed: int, device, mode: str = "causal"):
+    """Layer 0's conv module core of `mode` at its model's published
+    widths over clips of `frames` rows, packed: x [R, 2 C] (what the first
+    pointwise conv gives), the depthwise conv's weights at their initial
+    scale -- W2V-BERT's weight [C, 1, 31]; Parakeet's folded taps [C, 9]
+    and bias [C] -- and the Clips -> (x, (weights...), clips)."""
     import torch
 
-    from stutter_tpu_torch.config import W2VBertConfig
+    from stutter_tpu_torch.config import ParakeetConfig, W2VBertConfig
     from stutter_tpu_torch.models import w2v_bert
 
-    cfg = cfg or W2VBertConfig()
-    C, K = cfg.hidden_size, cfg.conv_depthwise_kernel_size
     g = torch.Generator().manual_seed(seed)
+    if mode == "causal":
+        C, K = W2VBertConfig().hidden_size, W2VBertConfig().conv_depthwise_kernel_size
+        w = (torch.randn(C, 1, K, generator=g) * math.sqrt(2.0 / K),)
+    else:
+        C, K = ParakeetConfig().hidden_size, ParakeetConfig().conv_kernel_size
+        w = (torch.randn(C, K, generator=g) * math.sqrt(2.0 / K), 0.5 * torch.randn(C, generator=g))
     x = torch.randn(int(sum(frames)), 2 * C, generator=g)
-    w = torch.randn(C, 1, K, generator=g) * math.sqrt(2.0 / K)
-    return x.to(device), w.to(device), w2v_bert.pack_clips(frames, device)
+    return x.to(device), tuple(t.to(device) for t in w), w2v_bert.pack_clips(frames, device)
 
 
-def conv_bound(rows: int, channels: int, taps: int) -> dict:
-    """The least time of the GLU and the causal depthwise conv over `rows`
-    x `channels` values: each value's two inputs read and its output
-    written (12 bytes) over the HBM rate, or its operations (the GLU's 4,
-    2 a tap) over the FP32 peak, whichever is larger."""
-    n_bytes, ops = 12.0 * rows * channels, float((4 + 2 * taps) * rows * channels)
+def conv_bound(rows: int, channels: int, taps: int, mode: str = "causal") -> dict:
+    """The least time of the GLU and the depthwise conv over `rows` x
+    `channels` values: each value's two inputs read and its output written
+    (12 bytes) over the HBM rate, or its operations (the GLU's 4, 2 a tap;
+    "centred": and the bias's 1 and SiLU's 4) over the FP32 peak,
+    whichever is larger."""
+    per = 4 + 2 * taps + (5 if mode == "centred" else 0)
+    n_bytes, ops = 12.0 * rows * channels, float(per * rows * channels)
     mem_ms, op_ms = n_bytes / HBM_RATE * 1e3, ops / FP32_RATE * 1e3
     return {"bound_ms": max(mem_ms, op_ms), "bound_by": "bytes" if mem_ms >= op_ms else "operations",
             "bytes": n_bytes, "flops": ops}
 
 
-def conv_check(frames, dev, seed: int = 0) -> dict:
-    """glu_depthwise's kernel once on conv_inputs of clips of `frames`
-    rows, against its plain version on the card: the worst gap |got - ref|
-    / (1 + |ref|), the launches the call counted and the device memory it
+def conv_check(frames, dev, seed: int = 0, mode: str = "causal") -> dict:
+    """`mode`'s conv kernel once on conv_inputs of clips of `frames` rows,
+    against its plain version on the card: the worst gap |got - ref| / (1 +
+    |ref|), the launches the call counted and the device memory it
     allocated beyond its output; then a second call into a NaN-filled
     buffer of 64 rows more than R: whether it wrote past row R, and whether
     its rows are the first call's bit for bit -> a dict, with the inputs
     under "inputs"."""
     import torch
 
-    from stutter_tpu_torch.models import w2v_bert as M
-
-    x, w, clips = inputs = conv_inputs(frames, seed, dev)
-    M.glu_depthwise(x, w, clips)  # builds the kernel
+    M, name = conv_model(mode)
+    core, cuda, plain = (getattr(M, name), getattr(M, f"_{name}_cuda"),
+                         getattr(M, f"{name}_plain"))
+    x, w, clips = inputs = conv_inputs(frames, seed, dev, mode)
+    core(x, *w, clips)  # builds the kernel
     torch.cuda.synchronize()
-    before, base = M.glu_depthwise.launches, torch.cuda.memory_allocated(dev)
+    before, base = core.launches, torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    got = M.glu_depthwise(x, w, clips)
+    got = core(x, *w, clips)
     torch.cuda.synchronize()
-    launches = M.glu_depthwise.launches - before
+    launches = core.launches - before
     extra = torch.cuda.max_memory_allocated(dev) - base - got.numel() * 4
     R, C = got.shape
     buf = torch.full((R + 64, C), float("nan"), device=dev)
-    again = M._glu_depthwise_cuda(x, w, clips, out=buf)
-    ref = M.glu_depthwise_plain(x, w, clips)
+    again = cuda(x, *w, clips, out=buf)
+    ref = plain(x, *w, clips)
     gap = float(((got - ref).abs() / (1 + ref.abs())).max()) if R else 0.0
-    return {"frames": [int(min(frames)), int(max(frames))], "clips": len(frames), "rows": R,
-            "gap": gap, "launches": launches, "extra_bytes": int(extra),
+    return {"mode": mode, "frames": [int(min(frames)), int(max(frames))], "clips": len(frames),
+            "rows": R, "gap": gap, "launches": launches, "extra_bytes": int(extra),
             "written_past_rows": not bool(buf[R:].isnan().all()),
             "again_equal": bool(torch.equal(again, got)), "inputs": inputs}
 
 
 def conv1d_call(x, w, clips):
-    """The GLU and the causal depthwise conv as the padded layout ran them:
-    each clip's rows laid out [B, T] (T its longest), the GLU, then
-    F.conv1d channels first with a left pad of K - 1 between two transposes
-    (cuDNN's or ATen's depthwise conv, a yardstick the port no longer
-    calls) -> a function of no argument."""
+    """The GLU and the depthwise conv as a padded layout runs them: each
+    clip's rows laid out [B, T] (T its longest), the GLU, then F.conv1d
+    channels first between two transposes -- W2V-BERT's weight [C, 1, K]
+    with a left pad of K - 1; Parakeet's (taps [C, K], bias) centred, then
+    SiLU -- (cuDNN's or ATen's depthwise conv, a yardstick the port does
+    not call) -> a function of no argument."""
     import torch.nn.functional as F
 
     from stutter_tpu_torch.models import w2v_bert
 
-    B, T, K = len(clips.frames), clips.longest, w.shape[-1]
+    B, T = len(clips.frames), clips.longest
     idx = w2v_bert.pack_index(clips.frames, T).to(x.device)
     xp = x.new_zeros(B * T, x.shape[1]).index_copy_(0, idx, x).view(B, T, -1)
-    return lambda: F.conv1d(F.pad(F.glu(xp, dim=-1).transpose(1, 2), (K - 1, 0)), w,
-                            groups=w.shape[0]).transpose(1, 2).contiguous()
+    if len(w) == 1:
+        (wt,) = w
+        K = wt.shape[-1]
+        return lambda: F.conv1d(F.pad(F.glu(xp, dim=-1).transpose(1, 2), (K - 1, 0)), wt,
+                                groups=wt.shape[0]).transpose(1, 2).contiguous()
+    wt, b = w
+    K = wt.shape[-1]
+    return lambda: F.silu(F.conv1d(F.glu(xp, dim=-1).transpose(1, 2), wt[:, None], b,
+                                   padding=(K - 1) // 2, groups=wt.shape[0])
+                          ).transpose(1, 2).contiguous()
 
 
 def conv_times(dev, card: str) -> None:
-    """At each of ATTENTION_SHAPES' clips (clip_frames), conv_check and the
-    device ms a call (torch.profiler) of the kernel, the plain version and
-    conv1d_call, beside conv_bound."""
-    from stutter_tpu_torch.models import w2v_bert as M
-
-    for B, T in ATTENTION_SHAPES:
-        frames = clip_frames(B, T, B * 1000 + T)
-        res = conv_check(frames, dev)
-        x, w, clips = res.pop("inputs")
-        kernel = kernel_times(lambda: M.glu_depthwise(x, w, clips))
-        plain = kernel_times(lambda: M.glu_depthwise_plain(x, w, clips))
-        lib = kernel_times(conv1d_call(x, w, clips))
-        print(json.dumps({**res, "shape": [B, T], "kernel_ms": sum(kernel.values()),
-                          "kernels": sorted(kernel), "plain_ms": sum(plain.values()),
-                          "conv1d_ms": sum(lib.values()), "conv1d_kernels": sorted(lib),
-                          **conv_bound(res["rows"], w.shape[0], w.shape[-1]), "card": card}),
-              flush=True)
+    """For each of CONV_MODES, at each of its shapes' clips (clip_frames),
+    conv_check and the device ms a call (torch.profiler) of the kernel, the
+    plain version and conv1d_call, beside conv_bound."""
+    for mode in CONV_MODES:
+        M, name = conv_model(mode)
+        core, plain = getattr(M, name), getattr(M, f"{name}_plain")
+        for B, T in mode_shapes(mode):
+            frames = clip_frames(B, T, B * 1000 + T)
+            res = conv_check(frames, dev, mode=mode)
+            x, w, clips = res.pop("inputs")
+            kernel = kernel_times(lambda: core(x, *w, clips))
+            plain_ms = kernel_times(lambda: plain(x, *w, clips))
+            lib = kernel_times(conv1d_call(x, w, clips))
+            print(json.dumps({**res, "shape": [B, T], "kernel_ms": sum(kernel.values()),
+                              "kernels": sorted(kernel), "plain_ms": sum(plain_ms.values()),
+                              "conv1d_ms": sum(lib.values()), "conv1d_kernels": sorted(lib),
+                              **conv_bound(res["rows"], w[0].shape[0], w[0].shape[-1], mode),
+                              "card": card}), flush=True)
 
 
 def main(argv=None) -> int:

@@ -707,7 +707,7 @@ def test_glu_depthwise_kernel_rejects_what_it_does_not_take(cuda):
     from stutter_tpu_torch.models import w2v_bert as W
     from stutter_tpu_torch.tools.kernel_phases import conv_inputs
 
-    x, w, clips = conv_inputs([30, 45], 0, cuda)
+    x, (w,), clips = conv_inputs([30, 45], 0, cuda)
     bad = {"float64": dict(x=x.double()),
            "strided": dict(x=torch.randn(2048, x.shape[0], device=cuda).T),
            "padded": dict(x=x[None]),
@@ -719,3 +719,101 @@ def test_glu_depthwise_kernel_rejects_what_it_does_not_take(cuda):
         args = {**dict(x=x, w=w, clips=clips), **swap}
         with pytest.raises(ValueError):
             W.glu_depthwise(args["x"], args["w"], args["clips"])
+
+
+@pytest.mark.parametrize("B,T", [(8, 719), (8, 978), (8, 1317), (8, 1856), (1, 1856), (3, 70)])
+def test_xl_attention_kernel_matches_plain(cuda, B, T):
+    """The kernel's Transformer-XL mode (Parakeet's attention core, head
+    width 128) on packed rows at the long-form cell's fitted batches of 8,
+    one 148 s recording and three short clips, q, k, v read by strides
+    from one [R, 3072] tensor, each clip's rows from its offset, ragged
+    clips and one of no frames (no row), the positional table over the
+    batch's distances: every clip's rows within 1e-5 of xl_attention_plain
+    on the CPU, one launch a call, no device memory beyond the output (no
+    [B, 8, T, 2T - 1] tensor), and the pairs the kernel reports it
+    multiplied equal to attn_pairs_run x heads, the counted call's output
+    the same bit for bit."""
+    from stutter_tpu_torch.tools.kernel_phases import attention_check
+
+    res = attention_check(B, T, cuda, "xl")
+    assert res["gap"] <= 1e-5, res["gap"]
+    assert res["launches"] == 1
+    assert res["extra_bytes"] <= 1 << 20
+    assert res["pairs"] == res["pairs_run"] and res["counted_call_equal"]
+
+
+def test_xl_attention_kernel_rejects_what_it_does_not_take(cuda):
+    """A CUDA tensor of another dtype or layout raises instead of running:
+    float64 q, a q whose last stride is not 1, a q off 16-byte alignment,
+    padded rows, int64 offsets, offsets of other rows than q's, a table
+    shorter than the longest clip's distances, and a head width of 64."""
+    from stutter_tpu_torch.config import ParakeetConfig
+    from stutter_tpu_torch.models import parakeet as PK
+    from stutter_tpu_torch.models.w2v_bert import pack_clips
+    from stutter_tpu_torch.tools.kernel_phases import attention_inputs
+
+    p, cfg, q, k, v, pos, clips = attention_inputs(2, 45, 7, cuda, mode="xl")
+    R = q.shape[0]
+    wide = torch.randn(R, 1025, device=cuda)
+    bad = {"float64": dict(q=q.double()),
+           "last stride": dict(q=torch.randn(1024, R, device=cuda).T),
+           "alignment": dict(q=wide[:, 1:]),
+           "padded": dict(q=q[None], k=k[None], v=v[None]),
+           "int64 offsets": dict(clips=clips._replace(offsets=clips.offsets.long())),
+           "rows": dict(clips=pack_clips(clips.frames + 1, cuda)),
+           "short table": dict(pos=pos[2:-2])}
+    for what, swap in bad.items():
+        args = {**dict(q=q, k=k, v=v, pos=pos, clips=clips), **swap}
+        with pytest.raises(ValueError):
+            PK.xl_attention(p, 0, args["q"], args["k"], args["v"], args["pos"], args["clips"],
+                            cfg)
+    p64, narrow, *acts, c64 = attention_inputs(
+        2, 45, 7, cuda, ParakeetConfig(hidden_size=512, num_attention_heads=8), "xl")
+    with pytest.raises(ValueError, match="heads x 128"):
+        PK.xl_attention(p64, 0, *acts, c64, narrow)
+
+
+@pytest.mark.parametrize("frames", [[1, 4, 5, 9, 45, 1856], [1856, 0, 1, 0], [9], [2] * 64,
+                                    "8x1317"])
+def test_glu_conv_silu_kernel_matches_plain(cuda, frames):
+    """The conv module's centred instantiation (Parakeet's GLU, 9-tap
+    depthwise conv with BatchNorm folded in, SiLU, on packed rows of 1024
+    channels) on ragged clips shorter and longer than its 4-row halo,
+    clips of no frame, one clip, many short ones and the long-form cell's
+    8 x 1317 batch's clips: within 1e-5 of glu_conv_silu_plain (|got -
+    ref| / (1 + |ref|)), one launch a call, no device memory beyond the
+    output, nothing written past row R of a larger buffer, the same rows
+    bit for bit."""
+    from stutter_tpu_torch.tools.kernel_phases import clip_frames, conv_check
+
+    if frames == "8x1317":
+        frames = clip_frames(8, 1317, 9317).tolist()
+    res = conv_check(frames, cuda, mode="centred")
+    assert res["gap"] <= 1e-5, res["gap"]
+    assert res["launches"] == 1
+    assert res["extra_bytes"] <= 1 << 20
+    assert not res["written_past_rows"] and res["again_equal"]
+
+
+def test_glu_conv_silu_kernel_rejects_what_it_does_not_take(cuda):
+    """A CUDA tensor the kernel does not take raises instead of running:
+    float64 x, a non-contiguous x, padded rows, 7 taps, a bias of other
+    channels, 48 channels, int64 offsets, offsets of other rows than x's."""
+    from stutter_tpu_torch.models import parakeet as PK
+    from stutter_tpu_torch.models.w2v_bert import pack_clips
+    from stutter_tpu_torch.tools.kernel_phases import conv_inputs
+
+    x, (w, b), clips = conv_inputs([30, 45], 0, cuda, "centred")
+    bad = {"float64": dict(x=x.double()),
+           "strided": dict(x=torch.randn(2048, x.shape[0], device=cuda).T),
+           "padded": dict(x=x[None]),
+           "7 taps": dict(w=w[:, :7].contiguous()),
+           "bias": dict(b=b[:512].contiguous()),
+           "48 channels": dict(x=x[:, :96].contiguous(), w=w[:48].contiguous(),
+                               b=b[:48].contiguous()),
+           "int64 offsets": dict(clips=clips._replace(offsets=clips.offsets.long())),
+           "rows": dict(clips=pack_clips([31, 45], cuda))}
+    for what, swap in bad.items():
+        args = {**dict(x=x, w=w, b=b, clips=clips), **swap}
+        with pytest.raises(ValueError):
+            PK.glu_conv_silu(args["x"], args["w"], args["b"], args["clips"])

@@ -29,7 +29,7 @@ LEAVES = {"denoise_clips": ("pad", "h2d", None, "d2h", "unpad"),
 
 def _clips():
     """Seven clips over three buckets, one longer than the largest bucket
-    (cut to it)."""
+    (cut to it, but by denoise_clips, which pads it to a multiple of it)."""
     rng = np.random.RandomState(5)
     return [(0.1 * rng.randn(n)).astype(np.float32)
             for n in (9000, 24576, 30000, 50000, 12000, 170000, 60000)]
@@ -60,11 +60,12 @@ def _traced(fn, tmp_path):
     return out, events, P.spans()[before_s:], added
 
 
-def _batches(clips, batch_size, rows=lambda n: n):
-    """(rows x bucket, valid samples, rows, bucket) of each padded batch."""
+def _batches(clips, batch_size, rows=lambda n: n, whole=False):
+    """(rows x bucket, valid samples, rows, bucket) of each padded batch
+    (`whole`: a clip past the largest bucket padded to a multiple of it)."""
     by = {}
     for y in clips:
-        b = pad_to_bucket(len(y), DEFAULT_BUCKETS)
+        b = pad_to_bucket(len(y), DEFAULT_BUCKETS, whole)
         by.setdefault(b, []).append(min(len(y), b))
     return [(rows(len(c)) * b, sum(c), rows(len(c)), b)
             for b, ns in by.items() for c in (ns[s : s + batch_size]
@@ -131,10 +132,11 @@ def test_corpus_path_spans_nest_per_batch_with_disjoint_leaves(owner, tmp_path):
                                         ("run_bucketed", 2), ("prepare_sequence_dataset", 1)])
 def test_corpus_path_counters_equal_a_hand_count(owner, mesh, tmp_path):
     """batches, pad_samples (rows x bucket, rows rounded up to the mesh),
-    valid_samples (each clip cut to its bucket) and h2d_bytes (the padded
-    float32 audio and the int32 lengths) for clips of known lengths, and no
-    other counter; a traced call returns what an untraced one does, bit
-    for bit."""
+    valid_samples (each clip cut to its bucket; denoise_clips cuts none),
+    cut_samples (what the cut dropped) and h2d_bytes (the padded float32
+    audio and the int32 lengths) for clips of known lengths, and no other
+    counter; a traced call returns what an untraced one does, bit for
+    bit."""
     clips = _clips()
     m = make_mesh(devices=["cpu"] * mesh)
 
@@ -148,13 +150,16 @@ def test_corpus_path_counters_equal_a_hand_count(owner, mesh, tmp_path):
     rows = lambda n: -(-n // mesh) * mesh  # noqa: E731
     plain = fn()
     got, _, _, counted = _traced(fn, tmp_path)
-    batches = _batches(clips, 3, rows)
+    whole = owner == "denoise_clips"
+    batches = _batches(clips, 3, rows, whole)
     pad = sum(b[0] for b in batches)
-    assert counted == {f"{owner}.batches": len(batches), f"{owner}.pad_samples": pad,
-                       f"{owner}.valid_samples": sum(b[1] for b in batches),
-                       f"{owner}.h2d_bytes": pad * 4 + sum(b[2] for b in batches) * 4}
-    assert counted[f"{owner}.valid_samples"] == sum(min(len(y), DEFAULT_BUCKETS[-1])
-                                                    for y in clips)
+    kept = sum(len(y) if whole else min(len(y), DEFAULT_BUCKETS[-1]) for y in clips)
+    want = {f"{owner}.batches": len(batches), f"{owner}.pad_samples": pad,
+            f"{owner}.valid_samples": sum(b[1] for b in batches),
+            f"{owner}.cut_samples": sum(len(y) for y in clips) - kept,
+            f"{owner}.h2d_bytes": pad * 4 + sum(b[2] for b in batches) * 4}
+    assert counted == {k: v for k, v in want.items() if v}  # a count of 0 adds nothing
+    assert counted[f"{owner}.valid_samples"] == kept
     # on the CPU nothing goes from page-locked memory: counted, and 0
     assert P.counters()[f"{owner}.pinned_bytes"] == 0
     if owner == "denoise_clips":
