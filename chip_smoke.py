@@ -2210,6 +2210,9 @@ def attention_phase(rng, dev) -> dict:
             check(r["pairs"] == r["pairs_run"] and r["counted_call_equal"],
                   f"{what}: the kernel multiplied {r['pairs']} pairs, attn_pairs_run counts "
                   f"{r['pairs_run']}, the counted call equal {r['counted_call_equal']}")
+            check(r.get("pos_products") == r.get("pos_products_run"),
+                  f"{what}: the kernel computed {r.get('pos_products')} positional products, "
+                  f"pos_products_run counts {r.get('pos_products_run')}")
             # each activation (frames aside) read once and the output written once
             r.update(bound(4 * len(acts) * cfg.hidden_size * int(frames.sum()),
                            attention_ops(frames.tolist(), cfg)),

@@ -97,24 +97,44 @@
 // relative_k_proj over the sinusoids of every distance i - j in
 // [-(T' - 1), T' - 1] (row T' - 1 + i - j; T' at least the longest clip),
 // one SGEMM a layer.  Every distance has its own row, per head, so no
-// small table holds the term: a 64 x 64 tile meets the 127 distances
-// i0 - j0 - 63 .. i0 - j0 + 63, 127 rows of 512 bytes.  The block keeps a
-// ring of 128 such rows in shared memory, indexed by (i - j) & 127: the
-// prologue loads i0 - 64 .. i0 + 63, and each next key tile needs 64 new
-// rows (64 further down), which load beside its keys with cp.async once
-// this tile's scores are done, into the slots of the 64 distances no
-// later tile meets.  A score's positional half is then the product of
-// q_i + v with the ring's row i - j, read along the tile's diagonals (the
-// rel-shift, in-kernel): a thread's 4 rows x 8 keys meet 18 distinct
-// distances, so each 4-deep step of the two products reads 8 float4 of q
-// (+ u, + v), 8 of k and 18 of the ring for 256 FMAs.  Nothing of size
-// T x T or T x 2T is written to device memory.  The head width of 128
-// doubles the q, k, v tiles (row stride 132) and each thread's output to
-// 4 rows x 16 columns; with the ring the block takes 188,416 bytes of
-// shared memory, one block of 4 warps an SM.  The body is the other
-// modes' (tiling, pipeline, online softmax, length bounds, packed rows,
-// pairs counter), templated on the head width: the two other modes are
-// its HD = 64 instances.
+// small table holds the term.  The mode has a block of its own
+// (xl_attention_kernel), with the other modes' online softmax, length
+// bounds, packed rows and pairs counter, and its own tiles:
+//
+//  * the positional half is a dense tile product, as q k^T is.  The key
+//    loop walks the distances down in blocks of XL_BK = 32: each block's
+//    P rows are staged in shared memory like a key tile and multiplied
+//    once by the 64 query rows, [64 x 128] . [128 x 32], each thread 4
+//    rows x 4 distances (4 float4 of q and 4 of P a 4-deep step, for 64
+//    FMAs), into a score ring of [64 rows x 96 distances] in shared
+//    memory, slot (i0 + 64 - delta) mod 96.  A key tile of 32 meets the
+//    95 distances i0 - j0 - 31 .. i0 - j0 + 63: the block it brings and
+//    the two before it.  So each (row, distance) is multiplied once over
+//    the key loop (the blocks run from i0 + 64 down, L + 64 distances a
+//    row with L rounded up to 32), and a score's positional half is one
+//    shared read at its row and slot i0 + 64 - (i - j): the rel-shift as
+//    an indexed read;
+//  * the q tile holds q + u, added once in the prologue, so q k^T and the
+//    positional product are the same loop: (q + v) . P = (q + u) . P +
+//    (v - u) . P, and the second term depends on the distance alone; 4
+//    threads a distance compute it for each block, into a row of 96 slots
+//    beside the ring;
+//  * the key tile is 32 keys, and P (the softmax's output) takes the
+//    ring's slots of the block no later tile reads, each row's written
+//    and read by the 8 threads that read the row's scores: q + u, one
+//    key, value and P-row tile, the ring and its row take 113,024 bytes of
+//    shared memory, so two blocks of 4 warps share an SM (at most 255
+//    registers a thread);
+//  * cp.async keeps a load under each product, with two barriers a key
+//    tile: the next block of P rows loads under this tile's q k^T,
+//    softmax and P v, the next key and value tiles under the next
+//    positional product.
+//
+// Nothing of size T x T or T x 2T is written to device memory.  Given
+// counters (`pairs`: two, else null), each warp adds the query-key pairs
+// its threads multiplied in q k^T and the (row, distance) products of the
+// positional half, what models/parakeet.attn_pairs_run and
+// pos_products_run count from the clips' frames.
 //
 // No --use_fast_math (see _build.py).
 #include <cuda_runtime.h>
@@ -122,23 +142,17 @@
 
 namespace {
 
+constexpr int HD = 64;        // head dim
 constexpr int BQ = 64;        // query rows a block
 constexpr int BK = 64;        // keys a tile
 constexpr int THREADS = 128;  // 4 warps x 16 query rows
 constexpr int GATE = 8;       // gru_rel_pos_linear's outputs: 2 groups of 4
+constexpr int LD = 68;        // row stride (floats) of the q, k and v tiles
 constexpr int LDP = 72;       // of the P tile (first the gate's x tile)
 constexpr int BD_LOADS = 8;   // bias gathers a thread keeps in flight
 constexpr int NREL_MAX = 80;  // distances a relative-key table holds: 10 groups of 8
-constexpr int RING = 128;     // XL: positional rows a block holds, a power of 2 >= BQ + BK - 1
-constexpr int XL_HD = 128;    // XL: the head width
 
-// Row stride (floats) of the q, k and v tiles (and XL's ring) at head
-// width HD: 4 floats past it, so the 4 rows a warp reads at once fall on
-// different banks.
-template <int HD>
-__host__ __device__ constexpr int ld_of() { return HD + 4; }
-
-enum Mode { GATED = 0, RELKEY = 1, XL = 2 };
+enum Mode { GATED = 0, RELKEY = 1 };
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -153,16 +167,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Rows r0 .. r0 + 63 of one head's [rows, HD] slice (row stride rs floats)
+// Rows r0 .. r0 + 63 of one head's [rows, 64] slice (row stride rs floats)
 // into a [64, ld] tile; rows at or past n_rows are zero-filled.
-template <int HD>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const float* src, int rs, int r0,
                                           int n_rows) {
-  constexpr int V = HD / 4, SH = HD == 64 ? 4 : 5;  // float4 a row, log2 of it
-  static_assert(V == 1 << SH, "a row of 16 or 32 float4");
 #pragma unroll
-  for (int it = 0; it < BQ * V / THREADS; ++it) {
-    const int e = threadIdx.x + it * THREADS, r = e >> SH, col = (e & (V - 1)) << 2;
+  for (int it = 0; it < BQ * (HD / 4) / THREADS; ++it) {
+    const int e = threadIdx.x + it * THREADS, r = e >> 4, col = (e & 15) << 2;
     const bool ok = r0 + r < n_rows;
     cp_async16(dst + r * ld + col, ok ? src + (long)(r0 + r) * rs + col : src, ok);
   }
@@ -171,10 +182,9 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const float* src, 
 // S += q k^T for this thread's 4 rows x 8 keys (keys c + 8 mm); with
 // PARTIAL only the key groups mm < nm, the rest of the tile being past the
 // clip's frames.
-template <bool PARTIAL, int HD>
+template <bool PARTIAL>
 __device__ __forceinline__ void scores(float (&S)[4][8], const float* Qs, const float* Ks,
                                        const int (&rr)[4], int c, int nm) {
-  constexpr int LD = ld_of<HD>();
 #pragma unroll 4
   for (int d = 0; d < HD; d += 4) {
     float4 qf[4], kf[8];
@@ -201,11 +211,10 @@ __device__ __forceinline__ void scores(float (&S)[4][8], const float* Qs, const 
 }
 
 // O += P v over the tile's first nj keys (a multiple of 8; 64 unless
-// PARTIAL) for this thread's 4 rows x columns 32 w + 4 c .. + 3, w < HD / 32.
-template <bool PARTIAL, int HD>
-__device__ __forceinline__ void weigh(float (&O)[4][HD / 8], const float* Ps, const float* Vs,
+// PARTIAL) for this thread's 4 rows x columns 4 c .. + 3 and 32 + 4 c .. + 3.
+template <bool PARTIAL>
+__device__ __forceinline__ void weigh(float (&O)[4][8], const float* Ps, const float* Vs,
                                       const int (&rr)[4], int c, int nj) {
-  constexpr int LD = ld_of<HD>(), W = HD / 32;
 #pragma unroll 2
   for (int j = 0; j < (PARTIAL ? nj : BK); j += 4) {
     float4 pf[4];
@@ -213,133 +222,30 @@ __device__ __forceinline__ void weigh(float (&O)[4][HD / 8], const float* Ps, co
     for (int ii = 0; ii < 4; ++ii) pf[ii] = *reinterpret_cast<const float4*>(Ps + rr[ii] * LDP + j);
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
-      // width 64 as the two older modes always ran it: nvcc then gives them
-      // the registers they had (168, no spills); the loop below at 128
-      if constexpr (HD == 64) {
-        const float4 v0 = *reinterpret_cast<const float4*>(Vs + (j + jj) * LD + 4 * c);
-        const float4 v1 = *reinterpret_cast<const float4*>(Vs + (j + jj) * LD + 32 + 4 * c);
+      const float4 v0 = *reinterpret_cast<const float4*>(Vs + (j + jj) * LD + 4 * c);
+      const float4 v1 = *reinterpret_cast<const float4*>(Vs + (j + jj) * LD + 32 + 4 * c);
 #pragma unroll
-        for (int ii = 0; ii < 4; ++ii) {
-          const float p = jj == 0 ? pf[ii].x : jj == 1 ? pf[ii].y : jj == 2 ? pf[ii].z : pf[ii].w;
-          O[ii][0] = fmaf(p, v0.x, O[ii][0]);
-          O[ii][1] = fmaf(p, v0.y, O[ii][1]);
-          O[ii][2] = fmaf(p, v0.z, O[ii][2]);
-          O[ii][3] = fmaf(p, v0.w, O[ii][3]);
-          O[ii][4] = fmaf(p, v1.x, O[ii][4]);
-          O[ii][5] = fmaf(p, v1.y, O[ii][5]);
-          O[ii][6] = fmaf(p, v1.z, O[ii][6]);
-          O[ii][7] = fmaf(p, v1.w, O[ii][7]);
-        }
-      } else {
-        float4 vw[W];
-#pragma unroll
-        for (int w = 0; w < W; ++w)
-          vw[w] = *reinterpret_cast<const float4*>(Vs + (j + jj) * LD + 32 * w + 4 * c);
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii) {
-          const float p = jj == 0 ? pf[ii].x : jj == 1 ? pf[ii].y : jj == 2 ? pf[ii].z : pf[ii].w;
-#pragma unroll
-          for (int w = 0; w < W; ++w) {
-            O[ii][4 * w + 0] = fmaf(p, vw[w].x, O[ii][4 * w + 0]);
-            O[ii][4 * w + 1] = fmaf(p, vw[w].y, O[ii][4 * w + 1]);
-            O[ii][4 * w + 2] = fmaf(p, vw[w].z, O[ii][4 * w + 2]);
-            O[ii][4 * w + 3] = fmaf(p, vw[w].w, O[ii][4 * w + 3]);
-          }
-        }
+      for (int ii = 0; ii < 4; ++ii) {
+        const float p = jj == 0 ? pf[ii].x : jj == 1 ? pf[ii].y : jj == 2 ? pf[ii].z : pf[ii].w;
+        O[ii][0] = fmaf(p, v0.x, O[ii][0]);
+        O[ii][1] = fmaf(p, v0.y, O[ii][1]);
+        O[ii][2] = fmaf(p, v0.z, O[ii][2]);
+        O[ii][3] = fmaf(p, v0.w, O[ii][3]);
+        O[ii][4] = fmaf(p, v1.x, O[ii][4]);
+        O[ii][5] = fmaf(p, v1.y, O[ii][5]);
+        O[ii][6] = fmaf(p, v1.z, O[ii][6]);
+        O[ii][7] = fmaf(p, v1.w, O[ii][7]);
       }
     }
-  }
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
-  s = fmaf(a.x, b.x, s);
-  s = fmaf(a.y, b.y, s);
-  s = fmaf(a.z, b.z, s);
-  return fmaf(a.w, b.w, s);
-}
-
-// XL: S += (q + u) k^T + (q + v) P[i - j]^T for this thread's 4 rows x 8
-// keys (keys c + 8 mm; with PARTIAL only mm < nm), the two products in two
-// passes over the head dims (fewer registers live than one).  Row i - j of
-// the positional term lies in the ring at (i - j) & (RING - 1); a pair (ii,
-// mm) has i - j = base + 4 ii - 8 mm, base = i0 - j0 + rr[0] - c, so the 32
-// pairs meet the 18 distances t = ii - 2 mm + 14, each read once a step.
-template <bool PARTIAL>
-__device__ __forceinline__ void xl_scores(float (&S)[4][8], const float* Qs, const float* Ks,
-                                          const float* Rg, const float* Ub, const float* Vb,
-                                          const int (&rr)[4], int c, int nm, int base) {
-  constexpr int LD = ld_of<XL_HD>(), NT = 18;
-#pragma unroll 2
-  for (int d = 0; d < XL_HD; d += 4) {
-    const float4 u = *reinterpret_cast<const float4*>(Ub + d);
-    float4 qu[4];
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const float4 q = *reinterpret_cast<const float4*>(Qs + rr[ii] * LD + d);
-      qu[ii] = make_float4(q.x + u.x, q.y + u.y, q.z + u.z, q.w + u.w);
-    }
-#pragma unroll
-    for (int mm = 0; mm < 8; ++mm) {
-      if (PARTIAL && mm >= nm) continue;
-      const float4 kf = *reinterpret_cast<const float4*>(Ks + (c + 8 * mm) * LD + d);
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) S[ii][mm] = dot4(qu[ii], kf, S[ii][mm]);
-    }
-  }
-  int ro[NT];  // the ring row of each distance, times LD
-#pragma unroll
-  for (int t = 0; t < NT; ++t) ro[t] = ((base + 4 * (t - 14)) & (RING - 1)) * LD;
-#pragma unroll 1
-  for (int d = 0; d < XL_HD; d += 4) {
-    const float4 w = *reinterpret_cast<const float4*>(Vb + d);
-    float4 qv[4];
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const float4 q = *reinterpret_cast<const float4*>(Qs + rr[ii] * LD + d);
-      qv[ii] = make_float4(q.x + w.x, q.y + w.y, q.z + w.z, q.w + w.w);
-    }
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      // the pairs of distance t: ii of t's parity, mm = (ii + 14 - t) / 2
-      bool any = false;
-#pragma unroll
-      for (int ii = t & 1; ii < 4; ii += 2) {
-        const int mm = (ii + 14 - t) / 2;
-        any |= mm >= 0 && mm < 8 && (!PARTIAL || mm < nm);
-      }
-      if (!any) continue;
-      const float4 pf = *reinterpret_cast<const float4*>(Rg + ro[t] + d);
-#pragma unroll
-      for (int ii = t & 1; ii < 4; ii += 2) {
-        const int mm = (ii + 14 - t) / 2;
-        if (mm < 0 || mm >= 8 || (PARTIAL && mm >= nm)) continue;
-        S[ii][mm] = dot4(qv[ii], pf, S[ii][mm]);
-      }
-    }
-  }
-}
-
-// XL: the positional rows of distances lo .. lo + n - 1 (one head's slice
-// of P, row stride ps floats, row T' - 1 + delta for delta in [-(T' - 1),
-// T' - 1]) into their ring slots; a distance outside that range is
-// zero-filled (its pairs are masked or unwritten).
-__device__ __forceinline__ void load_ring(float* Rg, const float* P, int ps, int Tp, int lo,
-                                          int n) {
-  constexpr int LD = ld_of<XL_HD>(), V = XL_HD / 4;
-  for (int e = threadIdx.x; e < n * V; e += THREADS) {
-    const int delta = lo + e / V, col = (e % V) * 4;
-    const bool ok = delta > -Tp && delta < Tp;
-    cp_async16(Rg + (delta & (RING - 1)) * LD + col, ok ? P + (long)(delta + Tp - 1) * ps + col : P,
-               ok);
   }
 }
 
 // Tb[r * ldt + d] = q_r . D_d / 8 for this thread's 4 rows and the
 // distances d = c + 8 mm < nrel (mm < NREL_MAX / 8), from the q tile and D
-// in shared memory, tiled as q k^T is (head width 64).
+// in shared memory, tiled as q k^T is.
 __device__ __forceinline__ void rel_table(float* Tb, int ldt, const float* Qs, const float* Ds,
                                           const int (&rr)[4], int c, int nrel) {
-  constexpr int NG = NREL_MAX / 8, HD = 64, LD = ld_of<HD>();
+  constexpr int NG = NREL_MAX / 8;
   float S[4][NG];
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii)
@@ -376,14 +282,12 @@ __device__ __forceinline__ void rel_table(float* Tb, int ldt, const float* Qs, c
 // different banks.
 __host__ __device__ __forceinline__ int rel_stride(int nrel) { return nrel | 1; }
 
-// One block of any mode, at head width HD (64, or 128 for XL).  GATED
-// reads x, gw, gb, gc, emb (layer 0's bucket embedding), buckets, and
-// `lengths` as each clip's frames of the padded [B, T] rows; RELKEY reads
-// emb as D [left + right + 1, 64], left and right, and `lengths` as the
-// packed rows' offsets [B + 1] (its batch strides unused); XL reads gw and
-// gb as bias_u and bias_v [H, 128], emb as the positional table P, R as
-// its T' and xsr as its row stride, and `lengths` as RELKEY does.
-template <int MODE, int HD>
+// One block of either mode.  GATED reads x, gw, gb, gc, emb (layer 0's
+// bucket embedding), buckets, and `lengths` as each clip's frames of the
+// padded [B, T] rows; RELKEY reads emb as D [left + right + 1, 64], left
+// and right, and `lengths` as the packed rows' offsets [B + 1] (its batch
+// strides unused).
+template <int MODE>
 __device__ __forceinline__ void attention_block(
     const float* __restrict__ x, const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ gw, const float* __restrict__ gb,
@@ -391,7 +295,6 @@ __device__ __forceinline__ void attention_block(
     const int* __restrict__ lengths, float* __restrict__ out, unsigned long long* __restrict__ pairs,
     int T, int H, int R, int left, int right, int xsb, int xsr, int qsb, int qsr, int ksb, int ksr,
     int vsb, int vsr) {
-  constexpr int LD = ld_of<HD>();
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;            // [BQ, LD]
   float* Ks = Qs + BQ * LD;    // [BK, LD]
@@ -401,8 +304,6 @@ __device__ __forceinline__ void attention_block(
   const int nrel = left + right + 1, ldt = rel_stride(nrel);
   float* Tb = Bd;              // RELKEY: [BQ, ldt], q_i . D_d / 8
   float* Ds = Tb + BQ * ldt;   // RELKEY: D [nrel, LD]
-  float* Rg = Bd;              // XL: the positional ring [RING, LD]
-  float* Ub = Rg + RING * LD;  // XL: bias_u's and bias_v's head slices [2, HD]
   const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * BQ;
   // the clip's rows: GATED T padded rows at b x the batch strides, of which
   // L are its own; RELKEY its L packed rows from row0
@@ -421,12 +322,10 @@ __device__ __forceinline__ void attention_block(
   float* o = out + (MODE == GATED ? (long)b * T * D : row0 * D) + h * HD;
 
   if (i0 >= L) {  // every row of the tile is padding (none, packed)
-    constexpr int SH = HD == 64 ? 4 : 5;  // log2 of a row's float4
     for (int e = tid; e < BQ * (HD / 4); e += THREADS) {
-      const int r = i0 + (e >> SH);
+      const int r = i0 + (e >> 4);
       if (r < rows)
-        *reinterpret_cast<float4*>(o + (long)r * D + ((e & (HD / 4 - 1)) << 2)) =
-            make_float4(0, 0, 0, 0);
+        *reinterpret_cast<float4*>(o + (long)r * D + ((e & 15) << 2)) = make_float4(0, 0, 0, 0);
     }
     return;
   }
@@ -441,11 +340,11 @@ __device__ __forceinline__ void attention_block(
   float gr[4];  // GATED: the gate of each of this thread's rows
 
   if constexpr (MODE == GATED) {
-    load_tile<HD>(Ps, LDP, x + (long)b * xsb + h * HD, xsr, i0, T);
-    load_tile<HD>(Qs, LD, q + (long)b * qsb + h * HD, qsr, i0, T);
-    load_tile<HD>(Ks, LD, kb, ksr, 0, L);
+    load_tile(Ps, LDP, x + (long)b * xsb + h * HD, xsr, i0, T);
+    load_tile(Qs, LD, q + (long)b * qsb + h * HD, qsr, i0, T);
+    load_tile(Ks, LD, kb, ksr, 0, L);
     cp_async_commit();
-    load_tile<HD>(Vs, LD, vb, vsr, 0, L);
+    load_tile(Vs, LD, vb, vsr, 0, L);
     cp_async_commit();
 
     // the bias along j - i: Bd[j - (i - i0) + BQ - 1] for this tile's rows,
@@ -491,49 +390,33 @@ __device__ __forceinline__ void attention_block(
     __syncthreads();
 #pragma unroll
     for (int ii = 0; ii < 4; ++ii) gr[ii] = Ps[rr[ii] * LDP + HD];
-  } else if constexpr (MODE == RELKEY) {
+  } else {
     // q's tile and D, then the first key and value tiles, which load while
     // the table is filled
-    load_tile<HD>(Qs, LD, q + row0 * qsr + h * HD, qsr, i0, rows);
+    load_tile(Qs, LD, q + row0 * qsr + h * HD, qsr, i0, rows);
     for (int e = tid; e < nrel * (HD / 4); e += THREADS)
       cp_async16(Ds + (e >> 4) * LD + ((e & 15) << 2), emb + (e >> 4) * HD + ((e & 15) << 2),
                  true);
     cp_async_commit();
-    load_tile<HD>(Ks, LD, kb, ksr, 0, L);
+    load_tile(Ks, LD, kb, ksr, 0, L);
     cp_async_commit();
-    load_tile<HD>(Vs, LD, vb, vsr, 0, L);
+    load_tile(Vs, LD, vb, vsr, 0, L);
     cp_async_commit();
     cp_async_wait<2>();  // q and D are in
     __syncthreads();
     if (busy) rel_table(Tb, ldt, Qs, Ds, rr, c, nrel);
     cp_async_wait<1>();  // the first key tile is in
     __syncthreads();     // and every row's table written
-  } else {
-    // q's tile, the head's u and v, and the ring's rows of distances
-    // i0 - 64 .. i0 + 63 (the first key tile meets i0 - 63 .. i0 + 63),
-    // with the first key tile; then the first value tile
-    load_tile<HD>(Qs, LD, q + row0 * qsr + h * HD, qsr, i0, rows);
-    if (tid < 2 * (HD / 4)) {
-      const int half = tid / (HD / 4), col = (tid % (HD / 4)) * 4;
-      cp_async16(Ub + half * HD + col, (half ? gb : gw) + h * HD + col, true);
-    }
-    load_ring(Rg, emb + h * HD, xsr, R, i0 - BK, RING);
-    load_tile<HD>(Ks, LD, kb, ksr, 0, L);
-    cp_async_commit();
-    load_tile<HD>(Vs, LD, vb, vsr, 0, L);
-    cp_async_commit();
-    cp_async_wait<1>();  // q, u, v, the ring and the first key tile are in
-    __syncthreads();
   }
 
-  float O[4][HD / 8], m[4], l[4];
+  float O[4][8], m[4], l[4];
   int run = 0;  // pairs this thread multiplied in q k^T
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii) {
     m[ii] = -INFINITY;
     l[ii] = 0.f;
 #pragma unroll
-    for (int e = 0; e < HD / 8; ++e) O[ii][e] = 0.f;
+    for (int e = 0; e < 8; ++e) O[ii][e] = 0.f;
   }
 
   for (int t = 0; t < n_kt; ++t) {
@@ -546,26 +429,16 @@ __device__ __forceinline__ void attention_block(
 #pragma unroll
       for (int mm = 0; mm < 8; ++mm) S[ii][mm] = 0.f;
     if (busy) {
-      if constexpr (MODE == XL) {
-        const int base = i0 - j0 + rr[0] - c;
-        if (nm == 8)
-          xl_scores<false>(S, Qs, Ks, Rg, Ub, Ub + HD, rr, c, 8, base);
-        else
-          xl_scores<true>(S, Qs, Ks, Rg, Ub, Ub + HD, rr, c, nm, base);
-      } else {
-        if (nm == 8)
-          scores<false, HD>(S, Qs, Ks, rr, c, 8);
-        else
-          scores<true, HD>(S, Qs, Ks, rr, c, nm);
-      }
+      if (nm == 8)
+        scores<false>(S, Qs, Ks, rr, c, 8);
+      else
+        scores<true>(S, Qs, Ks, rr, c, nm);
       run += 4 * nm;
     }
-    __syncthreads();  // the key tile is spent (XL: and the ring's rows i0 - j0 .. + 63)
+    __syncthreads();  // the key tile is spent
     const bool more = t + 1 < n_kt;
     if (more) {
-      load_tile<HD>(Ks, LD, kb, ksr, j0 + BK, L);
-      // the next tile meets distances down to i0 - j0 - 127
-      if constexpr (MODE == XL) load_ring(Rg, emb + h * HD, xsr, R, i0 - j0 - 2 * BK, BK);
+      load_tile(Ks, LD, kb, ksr, j0 + BK, L);
       cp_async_commit();
     }
 
@@ -578,10 +451,6 @@ __device__ __forceinline__ void attention_block(
         const float* bd = Bd + j0 + c - rr[ii] + BQ - 1;
 #pragma unroll
         for (int mm = 0; mm < 8; ++mm) S[ii][mm] = fmaf(S[ii][mm], 0.125f, gr[ii] * bd[8 * mm]);
-      } else if constexpr (MODE == XL) {
-        // 1 / sqrt(128)
-#pragma unroll
-        for (int mm = 0; mm < 8; ++mm) S[ii][mm] *= 0.08838834764831845f;
       } else {
         const float* tb = Tb + rr[ii] * ldt;
         const int rel = j0 + c - i0 - rr[ii];  // j - i of key group 0
@@ -609,7 +478,7 @@ __device__ __forceinline__ void attention_block(
       }
       l[ii] = l[ii] * corr + ls;
 #pragma unroll
-      for (int e = 0; e < HD / 8; ++e) O[ii][e] *= corr;
+      for (int e = 0; e < 8; ++e) O[ii][e] *= corr;
     }
     if (more)
       cp_async_wait<1>();
@@ -619,13 +488,13 @@ __device__ __forceinline__ void attention_block(
 
     if (busy) {
       if (nm == 8)
-        weigh<false, HD>(O, Ps, Vs, rr, c, BK);
+        weigh<false>(O, Ps, Vs, rr, c, BK);
       else
-        weigh<true, HD>(O, Ps, Vs, rr, c, 8 * nm);
+        weigh<true>(O, Ps, Vs, rr, c, 8 * nm);
     }
     if (more) {
       __syncthreads();  // the value tile and P are spent
-      load_tile<HD>(Vs, LD, vb, vsr, j0 + BK, L);
+      load_tile(Vs, LD, vb, vsr, j0 + BK, L);
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();  // the next key tile is in
@@ -648,21 +517,13 @@ __device__ __forceinline__ void attention_block(
     lt += __shfl_xor_sync(0xffffffffu, lt, 4);
     const int i = i0 + rr[ii];
     if (i >= rows) continue;
-    if constexpr (HD == 64) {
-      float4 a = make_float4(0, 0, 0, 0), z = a;
-      if (i < L) {
-        a = make_float4(O[ii][0] / lt, O[ii][1] / lt, O[ii][2] / lt, O[ii][3] / lt);
-        z = make_float4(O[ii][4] / lt, O[ii][5] / lt, O[ii][6] / lt, O[ii][7] / lt);
-      }
-      *reinterpret_cast<float4*>(o + (long)i * D + 4 * c) = a;
-      *reinterpret_cast<float4*>(o + (long)i * D + 32 + 4 * c) = z;
-    } else {  // packed rows: i < L
-#pragma unroll
-      for (int w = 0; w < HD / 32; ++w)
-        *reinterpret_cast<float4*>(o + (long)i * D + 32 * w + 4 * c) =
-            make_float4(O[ii][4 * w] / lt, O[ii][4 * w + 1] / lt, O[ii][4 * w + 2] / lt,
-                        O[ii][4 * w + 3] / lt);
+    float4 a = make_float4(0, 0, 0, 0), z = a;
+    if (i < L) {
+      a = make_float4(O[ii][0] / lt, O[ii][1] / lt, O[ii][2] / lt, O[ii][3] / lt);
+      z = make_float4(O[ii][4] / lt, O[ii][5] / lt, O[ii][6] / lt, O[ii][7] / lt);
     }
+    *reinterpret_cast<float4*>(o + (long)i * D + 4 * c) = a;
+    *reinterpret_cast<float4*>(o + (long)i * D + 32 + 4 * c) = z;
   }
 }
 
@@ -675,8 +536,8 @@ __global__ void __launch_bounds__(THREADS, 3)
                            float* __restrict__ out, unsigned long long* __restrict__ pairs,
                            int T, int H, int R, int xsb, int xsr,
                            int qsb, int qsr, int ksb, int ksr, int vsb, int vsr) {
-  attention_block<GATED, 64>(x, q, k, v, gw, gb, gc, emb, buckets, lengths, out, pairs, T, H, R, 0,
-                             0, xsb, xsr, qsb, qsr, ksb, ksr, vsb, vsr);
+  attention_block<GATED>(x, q, k, v, gw, gb, gc, emb, buckets, lengths, out, pairs, T, H, R, 0, 0,
+                         xsb, xsr, qsb, qsr, ksb, ksr, vsb, vsr);
 }
 
 __global__ void __launch_bounds__(THREADS, 2)
@@ -685,39 +546,316 @@ __global__ void __launch_bounds__(THREADS, 2)
                             const int* __restrict__ offsets, float* __restrict__ out,
                             unsigned long long* __restrict__ pairs, int T, int H, int left,
                             int right, int qsr, int ksr, int vsr) {
-  attention_block<RELKEY, 64>(nullptr, q, k, v, nullptr, nullptr, nullptr, dist, nullptr, offsets,
-                              out, pairs, T, H, 0, left, right, 0, 0, 0, qsr, 0, ksr, 0, vsr);
-}
-
-__global__ void __launch_bounds__(THREADS, 1)
-    xl_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ bias_u,
-                        const float* __restrict__ bias_v, const float* __restrict__ table,
-                        const int* __restrict__ offsets, float* __restrict__ out,
-                        unsigned long long* __restrict__ pairs, int T, int H, int Tp, int psr,
-                        int qsr, int ksr, int vsr) {
-  attention_block<XL, XL_HD>(nullptr, q, k, v, bias_u, bias_v, nullptr, table, nullptr, offsets,
-                             out, pairs, T, H, Tp, 0, 0, 0, psr, 0, qsr, 0, ksr, 0, vsr);
+  attention_block<RELKEY>(nullptr, q, k, v, nullptr, nullptr, nullptr, dist, nullptr, offsets, out,
+                          pairs, T, H, 0, left, right, 0, 0, 0, qsr, 0, ksr, 0, vsr);
 }
 
 // Shared memory a block needs for T frames.
 int smem_bytes(int T) {
   const int n_keys = (T + BK - 1) / BK * BK;
-  return (int)sizeof(float) * (3 * BQ * ld_of<64>() + BQ * LDP + n_keys + BQ - 1);
+  return (int)sizeof(float) * (3 * BQ * LD + BQ * LDP + n_keys + BQ - 1);
 }
 
 // Shared memory a relative-key block needs for nrel distances: the table
 // and D in place of the bias vector.
 int relkey_smem_bytes(int nrel) {
-  constexpr int LD = ld_of<64>();
   return (int)sizeof(float) * (3 * BQ * LD + BQ * LDP + BQ * rel_stride(nrel) + nrel * LD);
 }
 
-// Shared memory an XL block needs: the q, k and v tiles at width 128, P,
-// the ring and u, v (188,416 bytes).
+// ---- Parakeet's Transformer-XL mode ----
+
+constexpr int XL_HD = 128;             // the head width
+constexpr int XL_LD = XL_HD + 4;       // row stride (floats) of the q, k, v and P-row tiles
+constexpr int XL_BK = 32;              // keys a tile, distances a positional block
+constexpr int XL_MM = XL_BK / 8;       // a thread's groups of 8 keys or distances
+constexpr int XL_NB = BQ / XL_BK + 1;  // positional blocks a key tile reads
+constexpr int XL_NR = XL_NB * XL_BK;   // distances the score ring holds
+// the ring's row stride: a multiple of 4 (P's rows are read as float4) and
+// 12 past a multiple of 32, so the scores a warp reads at once (rows r + g,
+// slots s - g + c) fall on 32 banks but for 2-way conflicts of 7 threads
+constexpr int XL_LDR = XL_NR + 12;
+constexpr int XL_BLOCKS = 2;           // blocks an SM
+static_assert(XL_NR % 32 == 0, "a wrap in the ring keeps the bank");
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
+}
+
+// Tile rows r < N (row stride XL_LD) from one head's slice of a [n_rows,
+// H x 128] tensor (row stride rs floats): tile row r from row s0 + DIR r,
+// zero-filled where that lies outside [0, n_rows).
+template <int N, int DIR>
+__device__ __forceinline__ void xl_load(float* dst, const float* src, int rs, int s0, int n_rows) {
+#pragma unroll
+  for (int it = 0; it < N * (XL_HD / 4) / THREADS; ++it) {
+    const int e = threadIdx.x + it * THREADS, r = e >> 5, col = (e & 31) << 2;
+    const int s = s0 + DIR * r;
+    const bool ok = s >= 0 && s < n_rows;
+    cp_async16(dst + r * XL_LD + col, ok ? src + (long)s * rs + col : src, ok);
+  }
+}
+
+// S[ii][mm] += Qs[rr[ii]] . Bs[c + 8 mm] over the head width for this
+// thread's 4 rows and the groups mm < XL_MM (PARTIAL: mm < nm): q + u
+// against a key tile or against a block of positional rows, tiled alike.
+template <bool PARTIAL>
+__device__ __forceinline__ void xl_product(float (&S)[4][XL_MM], const float* Qs, const float* Bs,
+                                           const int (&rr)[4], int c, int nm) {
+#pragma unroll 4
+  for (int d = 0; d < XL_HD; d += 4) {
+    float4 qf[4];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+      qf[ii] = *reinterpret_cast<const float4*>(Qs + rr[ii] * XL_LD + d);
+#pragma unroll
+    for (int mm = 0; mm < XL_MM; ++mm) {
+      if (PARTIAL && mm >= nm) continue;
+      const float4 bf = *reinterpret_cast<const float4*>(Bs + (c + 8 * mm) * XL_LD + d);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) S[ii][mm] = dot4(qf[ii], bf, S[ii][mm]);
+    }
+  }
+}
+
+// O += P v over the tile's first nj keys (a multiple of 8; XL_BK unless
+// PARTIAL) for this thread's 4 rows x columns 32 w + 4 c .. + 3, w < 4; P's
+// rows lie in the ring (row stride XL_LDR).
+template <bool PARTIAL>
+__device__ __forceinline__ void xl_weigh(float (&O)[4][16], const float* Ps, const float* Vs,
+                                         const int (&rr)[4], int c, int nj) {
+#pragma unroll 2
+  for (int j = 0; j < (PARTIAL ? nj : XL_BK); j += 4) {
+    float4 pf[4];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+      pf[ii] = *reinterpret_cast<const float4*>(Ps + rr[ii] * XL_LDR + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float4 vw[4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w)
+        vw[w] = *reinterpret_cast<const float4*>(Vs + (j + jj) * XL_LD + 32 * w + 4 * c);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        const float p = jj == 0 ? pf[ii].x : jj == 1 ? pf[ii].y : jj == 2 ? pf[ii].z : pf[ii].w;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          O[ii][4 * w + 0] = fmaf(p, vw[w].x, O[ii][4 * w + 0]);
+          O[ii][4 * w + 1] = fmaf(p, vw[w].y, O[ii][4 * w + 1]);
+          O[ii][4 * w + 2] = fmaf(p, vw[w].z, O[ii][4 * w + 2]);
+          O[ii][4 * w + 3] = fmaf(p, vw[w].w, O[ii][4 * w + 3]);
+        }
+      }
+    }
+  }
+}
+
+// One (64-query tile, head, clip) of the XL mode; see the header.  Step t
+// multiplies positional block t (distances i0 - t XL_BK down to i0 - t
+// XL_BK - XL_BK + 1) into the ring, then, from t = 0 on, key tile t (keys
+// t XL_BK ..).  The blocks above i0 (t < 0) run first, so that key tile 0
+// finds its three.  Two barriers a step: after the positional product (the
+// ring, key and value tiles in; the next block's P rows then load under q
+// k^T, the softmax and P v) and after P v (the next key and value tiles
+// then load under the next positional product).
+__global__ void __launch_bounds__(THREADS, XL_BLOCKS)
+    xl_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ bias_u,
+                        const float* __restrict__ bias_v, const float* __restrict__ table,
+                        const int* __restrict__ offsets, float* __restrict__ out,
+                        unsigned long long* __restrict__ counts, int H, int Tp, int psr,
+                        int qsr, int ksr, int vsr) {
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                // [BQ, XL_LD]: q + u
+  float* Ks = Qs + BQ * XL_LD;     // [XL_BK, XL_LD]: a key tile
+  float* Vs = Ks + XL_BK * XL_LD;  // [XL_BK, XL_LD]: a value tile
+  float* Ss = Vs + XL_BK * XL_LD;  // [XL_BK, XL_LD]: a block of positional rows
+  float* Rg = Ss + XL_BK * XL_LD;  // [BQ, XL_LDR]: the ring, (q_i + u) . P[delta]
+  float* Wr = Rg + BQ * XL_LDR;    // [XL_NR]: (v - u) . P[delta], in the same slots
+  float* VU = Wr + XL_NR;          // [XL_HD]: v - u
+  constexpr int M0 = -(BQ / XL_BK);  // the first positional block, i0 + 64 down
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * BQ;
+  const long row0 = offsets[b];
+  const int L = offsets[b + 1] - offsets[b];
+  if (i0 >= L) return;  // the clip has no row in this tile
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 3, c = lane & 7;  // row group, key / column group
+  const int D = H * XL_HD;
+  const int n_kt = (L + XL_BK - 1) / XL_BK;
+  const float* kb = k + row0 * ksr + h * XL_HD;
+  const float* vb = v + row0 * vsr + h * XL_HD;
+  const float* pb = table + h * XL_HD;
+  int rr[4];  // this thread's rows in the tile
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) rr[ii] = warp * 16 + g + 4 * ii;
+  // a warp whose 16 rows all lie past the clip only loads and waits
+  const bool busy = i0 + warp * 16 < L;
+
+  xl_load<BQ, 1>(Qs, q + row0 * qsr + h * XL_HD, qsr, i0, L);
+  xl_load<XL_BK, -1>(Ss, pb, psr, Tp - 1 + i0 - M0 * XL_BK, 2 * Tp - 1);
+  cp_async_commit();
+  {
+    // u onto the q this thread copied (each thread's column is 4 lane),
+    // and v - u
+    const float4 u = __ldg(reinterpret_cast<const float4*>(bias_u + h * XL_HD) + lane);
+    cp_async_wait<0>();
+#pragma unroll
+    for (int it = 0; it < BQ * (XL_HD / 4) / THREADS; ++it) {
+      float4* qp = reinterpret_cast<float4*>(Qs + ((tid + it * THREADS) >> 5) * XL_LD) + lane;
+      const float4 x = *qp;
+      *qp = make_float4(x.x + u.x, x.y + u.y, x.z + u.z, x.w + u.w);
+    }
+    if (warp == 0) {
+      const float4 w = __ldg(reinterpret_cast<const float4*>(bias_v + h * XL_HD) + lane);
+      reinterpret_cast<float4*>(VU)[lane] = make_float4(w.x - u.x, w.y - u.y, w.z - u.z, w.w - u.w);
+    }
+  }
+  __syncthreads();  // q + u, v - u and block M0's P rows are in
+
+  float O[4][16], m[4], l[4];
+  int run = 0, pos = 0;  // pairs this thread multiplied in q k^T; its positional products
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    m[ii] = -INFINITY;
+    l[ii] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) O[ii][e] = 0.f;
+  }
+
+  for (int t = M0; t < n_kt; ++t) {
+    // here block t's P rows are in; so are, from t = 0 on, or are coming,
+    // key tile t and value tile t
+    const int slot0 = ((t - M0) % XL_NB) * XL_BK;  // the ring slot of the block's distance 0
+    // (v - u) . P[delta] of the block's distances, 4 threads a distance
+    for (int kk = tid >> 2; kk < XL_BK; kk += THREADS / 4) {
+      const int part = tid & 3;
+      float s = 0.f;
+#pragma unroll
+      for (int e = 0; e < XL_HD / 16; ++e)
+        s = dot4(*reinterpret_cast<const float4*>(Ss + kk * XL_LD + 4 * part + 16 * e),
+                 *reinterpret_cast<const float4*>(VU + 4 * part + 16 * e), s);
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if (part == 0) Wr[slot0 + kk] = s;
+    }
+    if (busy) {
+      float B[4][XL_MM];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int mm = 0; mm < XL_MM; ++mm) B[ii][mm] = 0.f;
+      xl_product<false>(B, Qs, Ss, rr, c, XL_MM);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int mm = 0; mm < XL_MM; ++mm) Rg[rr[ii] * XL_LDR + slot0 + c + 8 * mm] = B[ii][mm];
+      pos += 4 * XL_MM;
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the block is in the ring, its P rows are spent; key and value tile t are in
+    if (t + 1 < n_kt) xl_load<XL_BK, -1>(Ss, pb, psr, Tp - 1 + i0 - (t + 1) * XL_BK, 2 * Tp - 1);
+    cp_async_commit();
+
+    if (t >= 0 && busy) {
+      const int j0 = t * XL_BK;
+      // key groups of 8 holding keys < L: the last tile's rest is skipped
+      const int nm = min(XL_MM, (L - j0 + 7) >> 3);
+      float S[4][XL_MM];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int mm = 0; mm < XL_MM; ++mm) S[ii][mm] = 0.f;
+      if (nm == XL_MM)
+        xl_product<false>(S, Qs, Ks, rr, c, XL_MM);
+      else
+        xl_product<true>(S, Qs, Ks, rr, c, nm);
+      run += 4 * nm;
+
+      // P goes to the ring's slots of block t - 2, which only this tile's
+      // scores read, each row's by the 8 threads that own the row: a warp
+      // writes its rows' P once its reads are done, and reads only them
+      float* Ps = Rg + ((t + 1 - M0) % XL_NB) * XL_BK;  // row stride XL_LDR
+      const bool edge = j0 + XL_BK > L;
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        const float* rg = Rg + rr[ii] * XL_LDR;
+        // the slot of key group 0 before the wrap: i0 + 64 - (i - j)
+        const int u0 = BQ - rr[ii] + j0 + c;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int mm = 0; mm < XL_MM; ++mm) {
+          const unsigned s = (unsigned)(u0 + 8 * mm) % XL_NR;
+          // 1 / sqrt(128)
+          S[ii][mm] = (S[ii][mm] + rg[s] + Wr[s]) * 0.08838834764831845f;
+          if (edge && j0 + c + 8 * mm >= L) S[ii][mm] = -INFINITY;
+          mx = fmaxf(mx, S[ii][mm]);
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+        const float mn = fmaxf(m[ii], mx);
+        const float corr = expf(m[ii] - mn);
+        m[ii] = mn;
+        __syncwarp();  // the row's slots are read
+        float ls = 0.f;
+#pragma unroll
+        for (int mm = 0; mm < XL_MM; ++mm) {
+          const float p = expf(S[ii][mm] - mn);
+          Ps[rr[ii] * XL_LDR + c + 8 * mm] = p;
+          ls += p;
+        }
+        l[ii] = l[ii] * corr + ls;
+#pragma unroll
+        for (int e = 0; e < 16; ++e) O[ii][e] *= corr;
+      }
+      __syncwarp();  // the warp's P rows are written
+      if (nm == XL_MM)
+        xl_weigh<false>(O, Ps, Vs, rr, c, XL_BK);
+      else
+        xl_weigh<true>(O, Ps, Vs, rr, c, 8 * nm);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // block t + 1's P rows are in; the key, value and P tiles are spent
+    if (t + 1 >= 0 && t + 1 < n_kt) {
+      xl_load<XL_BK, 1>(Ks, kb, ksr, (t + 1) * XL_BK, L);
+      xl_load<XL_BK, 1>(Vs, vb, vsr, (t + 1) * XL_BK, L);
+    }
+    cp_async_commit();
+  }
+
+  if (counts != nullptr) {
+#pragma unroll
+    for (int sh = 1; sh < 32; sh <<= 1) {
+      run += __shfl_xor_sync(0xffffffffu, run, sh);
+      pos += __shfl_xor_sync(0xffffffffu, pos, sh);
+    }
+    if (lane == 0 && run > 0) atomicAdd(counts, (unsigned long long)run);
+    if (lane == 0 && pos > 0) atomicAdd(counts + 1, (unsigned long long)pos);
+  }
+  float* o = out + row0 * D + h * XL_HD;
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    float lt = l[ii];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 4);
+    const int i = i0 + rr[ii];
+    if (i >= L) continue;
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      *reinterpret_cast<float4*>(o + (long)i * D + 32 * w + 4 * c) =
+          make_float4(O[ii][4 * w] / lt, O[ii][4 * w + 1] / lt, O[ii][4 * w + 2] / lt,
+                      O[ii][4 * w + 3] / lt);
+  }
+}
+
+// Shared memory an XL block needs: q + u, a key (then P), a value and a
+// P-row tile, the ring, its row of (v - u) . P and v - u.
 constexpr int xl_smem_bytes() {
-  constexpr int LD = ld_of<XL_HD>();
-  return (int)sizeof(float) * (3 * BQ * LD + BQ * LDP + RING * LD + 2 * XL_HD);
+  return (int)sizeof(float) * (BQ * XL_LD + 3 * XL_BK * XL_LD + BQ * XL_LDR + XL_NR + XL_HD);
 }
 
 }  // namespace
@@ -771,16 +909,18 @@ extern "C" int relkey_attention_launch(const void* q, const void* k, const void*
 
 // q, k, v: [R, H x 128] float32 views of packed rows (last stride 1, the
 // row strides in floats, multiples of 4, 16-byte aligned); bias_u, bias_v
-// [H, 128] float32, contiguous; table [2 Tp - 1, H x 128] float32 (last
-// stride 1, row stride psr floats, a multiple of 4, 16-byte aligned), row
-// Tp - 1 + delta the positional projection of distance delta, Tp >= T;
-// offsets [B + 1] int32, clip b's rows offsets[b] .. offsets[b + 1] - 1; T
-// the longest clip's rows; out [R, H x 128]; pairs null, or a uint64 the
-// kernel adds the pairs it multiplied to.
+// [H, 128] float32, contiguous and 16-byte aligned; table [2 Tp - 1, H x
+// 128] float32 (last stride 1, row stride psr floats, a multiple of 4,
+// 16-byte aligned), row Tp - 1 + delta the positional projection of
+// distance delta, Tp >= T; offsets [B + 1] int32, clip b's rows offsets[b]
+// .. offsets[b + 1] - 1; T the longest clip's rows; out [R, H x 128];
+// counts null, or two uint64 the kernel adds to: the query-key pairs it
+// multiplied, then the (row, distance) products of its positional half.
 extern "C" int xl_attention_launch(const void* q, const void* k, const void* v,
                                    const void* bias_u, const void* bias_v, const void* table,
-                                   const void* offsets, void* out, void* pairs, int B, int T, int H,
-                                   int Tp, int psr, int qsr, int ksr, int vsr, void* stream) {
+                                   const void* offsets, void* out, void* counts, int B, int T,
+                                   int H, int Tp, int psr, int qsr, int ksr, int vsr,
+                                   void* stream) {
   if (B < 1 || T < 1 || H < 1 || Tp < T) return (int)cudaErrorInvalidValue;
   constexpr int bytes = xl_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(xl_attention_kernel,
@@ -789,6 +929,18 @@ extern "C" int xl_attention_launch(const void* q, const void* k, const void* v,
   xl_attention_kernel<<<dim3((T + BQ - 1) / BQ, H, B), THREADS, bytes, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)bias_u,
       (const float*)bias_v, (const float*)table, (const int*)offsets, (float*)out,
-      (unsigned long long*)pairs, T, H, Tp, psr, qsr, ksr, vsr);
+      (unsigned long long*)counts, H, Tp, psr, qsr, ksr, vsr);
   return (int)cudaGetLastError();
+}
+
+// Blocks of xl_attention_kernel one SM of the current device holds at its
+// shared memory, into *blocks (an int); the stream is unused.
+extern "C" int xl_attention_occupancy(void* blocks, void* stream) {
+  (void)stream;
+  constexpr int bytes = xl_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(xl_attention_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor((int*)blocks, xl_attention_kernel,
+                                                            THREADS, bytes);
 }

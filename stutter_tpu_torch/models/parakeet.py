@@ -60,7 +60,8 @@ holding `parakeet.fbank`, `parakeet.subsample` and, a layer,
 `parakeet.conv_module`, and counts `parakeet.batches`, `valid_frames`,
 `sent_frames` (the rows the blocks ran on: R), `attn_pairs_valid` and
 `attn_pairs_sent` (sum of T_i^2), `attn_pairs_run` (the pairs the
-attention kernel multiplies) and `pos_rows` (the rows of one layer's
+attention kernel multiplies), `pos_products_run` (the (row, distance)
+products of its positional half) and `pos_rows` (the rows of one layer's
 positional table: 2 T_max - 1).
 """
 
@@ -81,6 +82,8 @@ from stutter_tpu_torch.ops import fbank
 from stutter_tpu_torch.utils.profiling import count, span, tracing
 
 ATTN_HEAD_DIM = 128  # the attention kernel's third mode's head width
+ATTN_KEYS = 32  # its keys a tile, and distances a block of its positional half
+ATTN_BLOCKS_PER_SM = 2  # its blocks an SM holds (xl_blocks_per_sm; a card test)
 CONV_TAPS = 9  # the centred depthwise conv's taps the kernel takes
 CONV_CHANNELS = w2v_bert.CONV_CHANNELS
 LN_EPS = 1e-5  # nn.LayerNorm's default, as the blocks build them
@@ -321,8 +324,9 @@ def xl_terms(p: dict, i: int, qh: torch.Tensor, pos: torch.Tensor,
 
 
 def _xl_attention_cuda(p, i, q, k, v, pos, clips, cfg, pairs=None):
-    """The kernel's launch; `pairs`, a CUDA int64 [1] tensor, gets the
-    query-key pairs the kernel multiplied added to it."""
+    """The kernel's launch; `pairs`, a CUDA int64 [2] tensor, gets the
+    query-key pairs the kernel multiplied and the (row, distance) products
+    of its positional half added to it."""
     R, D = q.shape[0], q.shape[-1]
     heads = cfg.num_attention_heads
     pre = LAYER.format(i) + "self_attn."
@@ -338,7 +342,8 @@ def _xl_attention_cuda(p, i, q, k, v, pos, clips, cfg, pairs=None):
                    or b.data_ptr() % 16 for b in (bu, bv))
             or offsets.dtype != torch.int32 or offsets.shape != (len(clips.frames) + 1,)
             or offsets.device != q.device or R != int(clips.frames.sum())
-            or pairs is not None and (pairs.dtype != torch.int64 or pairs.device != q.device)):
+            or pairs is not None and (pairs.dtype != torch.int64 or pairs.shape != (2,)
+                                      or pairs.device != q.device)):
         raise ValueError(
             f"xl_attention kernel needs float32 packed [R, heads x {ATTN_HEAD_DIM}] q, k, v on "
             f"one device (last stride 1, 16-byte rows), a [2 T - 1, heads x {ATTN_HEAD_DIM}] "
@@ -380,6 +385,19 @@ xl_attention.launches = 0  # kernel launches
 # the function that holds the count: a caller may wrap the module's name
 # (a tracing span), and the count stays on the function itself
 _LAUNCHES = xl_attention
+
+
+def xl_blocks_per_sm(device) -> int:
+    """Blocks of the attention kernel's Transformer-XL mode one SM of this
+    CUDA device holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the
+    kernel's shared memory and registers)."""
+    import ctypes
+
+    blocks = ctypes.c_int(0)
+    fn = _build.bind("gated_attention", "xl_attention_occupancy", 1, 0)
+    _build.check(_build.launch(fn, torch.empty(0, device=device), ctypes.addressof(blocks)),
+                 "xl_attention_occupancy")
+    return blocks.value
 
 
 def centred_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, clips: Clips) -> torch.Tensor:
@@ -488,9 +506,22 @@ def conformer_block(p: dict, i: int, h: torch.Tensor, sin: torch.Tensor, clips: 
     return _ln(p, pre + "norm_out", h)
 
 
-# query-key pairs a head the attention kernel multiplies for clips of these
-# frame counts: the relative-key mode's, whose tiling and packed rows it shares
-attn_pairs_run = w2v_bert.attn_pairs_run
+def attn_pairs_run(frames) -> int:
+    """Query-key pairs a head the attention kernel multiplies for clips of
+    these frame counts: each clip's rows in whole warps of 16 by its keys in
+    whole groups of 8 (the last key tile multiplies only the groups that
+    hold a key), a clip of no frame none."""
+    return sum(-(-t // 16) * 16 * -(-t // 8) * 8 for t in torch.as_tensor(frames).tolist())
+
+
+def pos_products_run(frames) -> int:
+    """(row, distance) products a head the kernel's positional half computes
+    for clips of these frame counts: each clip's rows in whole warps of 16
+    by its positional blocks of ATTN_KEYS distances, one a key tile and the
+    64 distances above the query tile's first row, a clip of no frame
+    none."""
+    return sum(-(-t // 16) * 16 * (-(-t // ATTN_KEYS) * ATTN_KEYS + 64)
+               for t in torch.as_tensor(frames).tolist())
 
 
 def _count(frames: list, T: int) -> None:
@@ -502,6 +533,7 @@ def _count(frames: list, T: int) -> None:
     count("parakeet.attn_pairs_valid", pairs)
     count("parakeet.attn_pairs_sent", pairs)
     count("parakeet.attn_pairs_run", attn_pairs_run(frames))
+    count("parakeet.pos_products_run", pos_products_run(frames))
     count("parakeet.pos_rows", 2 * T - 1)
 
 

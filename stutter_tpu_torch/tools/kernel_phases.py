@@ -548,9 +548,10 @@ def attention_check(B: int, T: int, dev, mode: str = "gated") -> dict:
     launches the call counted and the device memory it allocated beyond
     its output (the plain version's [B, heads, T, T] float32 tensor beside
     it); then the pairs the kernel reports it multiplied on a second call,
-    beside the model's attn_pairs_run x heads, and whether that call's
-    output is the first's bit for bit -> a dict, with the inputs under
-    "inputs"."""
+    beside the model's attn_pairs_run x heads ("xl": also the positional
+    products it reports beside pos_products_run x heads), and whether that
+    call's output is the first's bit for bit -> a dict, with the inputs
+    under "inputs"."""
     import torch
 
     M, name = attention_model(mode)
@@ -567,7 +568,7 @@ def attention_check(B: int, T: int, dev, mode: str = "gated") -> dict:
     torch.cuda.synchronize()
     launches = M._LAUNCHES.launches - before
     extra = torch.cuda.max_memory_allocated(dev) - base - got.numel() * 4
-    pairs = torch.zeros(1, dtype=torch.int64, device=dev)
+    pairs = torch.zeros(2 if mode == "xl" else 1, dtype=torch.int64, device=dev)
     counted = cuda(p, 0, *acts, cfg, pairs=pairs)
     ref = plain({n: t.cpu() for n, t in p.items()}, 0, *(on_cpu(t) for t in acts), cfg)
     got, gap, zero, s = got.cpu(), 0.0, True, 0
@@ -580,10 +581,14 @@ def attention_check(B: int, T: int, dev, mode: str = "gated") -> dict:
             zero = zero and not bool(got[b, n:].any())
         if n:
             gap = max(gap, float(((g - r).abs() / (1 + r.abs())).max()))
+    heads = cfg.num_attention_heads
+    pos = ({"pos_products": int(pairs[1]), "pos_products_run": heads * M.pos_products_run(frames)}
+           if mode == "xl" else {})
     return {"mode": mode, "shape": [B, T], "frames": [int(frames.min()), int(frames.max())],
             "gap": gap, "padded_rows_zero": zero, "launches": launches,
-            "pairs": int(pairs.item()), "counted_call_equal": bool(torch.equal(counted.cpu(), got)),
-            "pairs_run": cfg.num_attention_heads * M.attn_pairs_run(frames),
+            "pairs": int(pairs[0]), **pos,
+            "counted_call_equal": bool(torch.equal(counted.cpu(), got)),
+            "pairs_run": heads * M.attn_pairs_run(frames),
             "pairs_valid": int((frames ** 2).sum()), "extra_bytes": int(extra),
             "btt_bytes": B * cfg.num_attention_heads * T * T * 4, "inputs": inputs}
 
@@ -643,6 +648,8 @@ def attention_times(dev, card: str) -> None:
             plain_ms = kernel_times(lambda: plain(p, 0, *acts, cfg))
             sdpa = kernel_times(sdpa_call(*inputs))
             ops = attention_ops(frames_of(acts[-1]).tolist(), cfg)
+            if mode == "xl":
+                res["blocks_per_sm"] = M.xl_blocks_per_sm(dev)
             print(json.dumps({
                 **res, "kernel_ms": sum(kernel.values()), "kernels": sorted(kernel),
                 "plain_ms": sum(plain_ms.values()), "sdpa_ms": sum(sdpa.values()),

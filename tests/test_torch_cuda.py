@@ -731,8 +731,9 @@ def test_xl_attention_kernel_matches_plain(cuda, B, T):
     batch's distances: every clip's rows within 1e-5 of xl_attention_plain
     on the CPU, one launch a call, no device memory beyond the output (no
     [B, 8, T, 2T - 1] tensor), and the pairs the kernel reports it
-    multiplied equal to attn_pairs_run x heads, the counted call's output
-    the same bit for bit."""
+    multiplied equal to attn_pairs_run x heads, its positional products to
+    pos_products_run x heads, the counted call's output the same bit for
+    bit."""
     from stutter_tpu_torch.tools.kernel_phases import attention_check
 
     res = attention_check(B, T, cuda, "xl")
@@ -740,6 +741,7 @@ def test_xl_attention_kernel_matches_plain(cuda, B, T):
     assert res["launches"] == 1
     assert res["extra_bytes"] <= 1 << 20
     assert res["pairs"] == res["pairs_run"] and res["counted_call_equal"]
+    assert res["pos_products"] == res["pos_products_run"]
 
 
 def test_xl_attention_kernel_rejects_what_it_does_not_take(cuda):

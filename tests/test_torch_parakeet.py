@@ -605,7 +605,8 @@ def test_traced_extraction_opens_the_spans_and_counts_the_shapes(small, tmp_path
     add up to the batches' shapes (fitted_groups' batches at a stride of
     1280 samples): sum T_i frames valid and sent, sum T_i^2 pairs valid and
     sent, the kernel's pairs (rows in warps of 16 by keys in groups of 8),
-    and 2 T_max - 1 positional rows a batch."""
+    its positional products (rows in warps of 16 by the keys in tiles of
+    32, plus 64), and 2 T_max - 1 positional rows a batch."""
     fc, _ = small
     clips = _clips((9000, 24576, 30000, 50000, 12000))
     before_c, before_s = P.counters(), len(P.spans())
@@ -627,6 +628,8 @@ def test_traced_extraction_opens_the_spans_and_counts_the_shapes(small, tmp_path
                      "parakeet.attn_pairs_valid": sum(x * x for x in t),
                      "parakeet.attn_pairs_sent": sum(x * x for x in t),
                      "parakeet.attn_pairs_run": sum(16 * -(-x // 16) * 8 * -(-x // 8) for x in t),
+                     "parakeet.pos_products_run": sum(16 * -(-x // 16) * (32 * -(-x // 32) + 64)
+                                                      for x in t),
                      "parakeet.pos_rows": sum(2 * max(b) - 1 for b in batches)}
     L = SMALL.num_hidden_layers
     for source in (names, ["stp." + s.name for s in mem if s.name.startswith("parakeet.")]):
@@ -634,6 +637,63 @@ def test_traced_extraction_opens_the_spans_and_counts_the_shapes(small, tmp_path
             assert source.count(f"stp.parakeet.{leaf}") == len(batches)
         for leaf in ("pos", "attention", "conv_module"):
             assert source.count(f"stp.parakeet.{leaf}") == len(batches) * L
+
+
+@pytest.mark.parametrize("frames,pairs,products", [
+    ([1], 16 * 8, 16 * (32 + 64)),
+    ([0, 5], 16 * 8, 16 * (32 + 64)),
+    ([33], 48 * 40, 48 * (64 + 64)),
+    ([16, 17, 0], 16 * 16 + 32 * 24, 16 * (32 + 64) + 32 * (32 + 64)),
+    ([64, 65], 64 * 64 + 80 * 72, 64 * (64 + 64) + 80 * (96 + 64)),
+])
+def test_kernel_counts_follow_its_tiling(frames, pairs, products):
+    """attn_pairs_run and pos_products_run, counted by hand: each clip's
+    rows in warps of 16 by its keys in groups of 8 (q k^T), and by its
+    keys in tiles of 32 plus the 64 distances above a query tile (the
+    positional half's blocks of 32 distances); a clip of no frame none."""
+    assert PK.ATTN_KEYS == 32
+    assert PK.attn_pairs_run(frames) == pairs
+    assert PK.pos_products_run(frames) == products
+    assert PK.attn_pairs_run(torch.tensor(frames)) == pairs
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the attention kernel runs only there")
+    from stutter_tpu_torch.device import resolve_device
+
+    return resolve_device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T", [(2, 45), (1, 1), (4, 301), (1, 5000)])
+def test_xl_kernel_matches_plain_at_the_edges_of_its_tiling(cuda, B, T):
+    """The Transformer-XL mode of csrc/gated_attention.cu at the edges of
+    its tiles (keys and positional blocks of 32, a score ring of 96
+    distances): 45 frames, not a multiple of the key tile, beside a clip
+    of no frames; one frame; 301 frames, past two ring lengths, in a
+    ragged batch with a clip of no frames; 5,000 frames, the encoder's
+    max_samples.  Every clip's rows within 1e-5 of xl_attention_plain on
+    the CPU, one launch a call, and the pairs and positional products the
+    kernel reports equal to attn_pairs_run and pos_products_run x heads."""
+    from stutter_tpu_torch.tools.kernel_phases import attention_check
+
+    res = attention_check(B, T, cuda, "xl")
+    assert res["gap"] <= 1e-5, res["gap"]
+    assert res["launches"] == 1
+    assert res["pairs"] == res["pairs_run"], (res["pairs"], res["pairs_run"])
+    assert res["pos_products"] == res["pos_products_run"], (res["pos_products"],
+                                                            res["pos_products_run"])
+    assert res["counted_call_equal"]
+
+
+@pytest.mark.gpu
+def test_xl_kernel_holds_the_blocks_an_sm_its_design_states(cuda):
+    """The card puts ATTN_BLOCKS_PER_SM blocks of the XL mode on an SM
+    (its shared memory and registers allow it)."""
+    assert PK.ATTN_BLOCKS_PER_SM == 2
+    assert PK.xl_blocks_per_sm(cuda) == PK.ATTN_BLOCKS_PER_SM
 
 
 @pytest.mark.parametrize("frames", [[1], [45, 0, 30], [719, 978, 1317, 1856]])
